@@ -1,0 +1,124 @@
+"""Wrapper around the hand-written Hopper ``gwas_dot`` kernel
+(``kernels/csrc/gwas_dot.cu``), the port of the Pallas TPU kernel
+``repro.kernels.gwas_dot.gwas_dot.gwas_dot_kernel``.
+
+``gwas_dot_fused`` checks and allocates, then launches the CUDA kernel for
+tensors on a CUDA device, or runs the plain PyTorch version (``ref.py``) for
+tensors on the CPU.  There is no fallback: a CUDA tensor either launches the
+kernel or raises.  ``launches`` counts kernel launches (never the plain
+version's runs), so a caller can show that a path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.gwas_dot.ref import gwas_dot_ref, unpack_tiled
+
+__all__ = ["gwas_dot_fused", "launches", "INPUT_DTYPES"]
+
+INPUT_DTYPES = ("fp32", "bf16")
+
+# Number of CUDA kernel launches so far; reset it by assignment.
+launches = 0
+
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        from repro_torch.kernels.build import load
+
+        fn = load("gwas_dot").gwas_dot_launch
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6
+            + [ctypes.c_int] * 6
+            + [ctypes.c_float] * 3
+            + [ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(packed, mean, inv_std, y, block_n, input_dtype) -> tuple[int, int, int]:
+    if input_dtype not in INPUT_DTYPES:
+        raise ValueError(f"unknown input_dtype {input_dtype!r}; expected {INPUT_DTYPES}")
+    if block_n <= 0 or block_n % 4:
+        raise ValueError(f"block_n must be a positive multiple of 4, got {block_n}")
+    if packed.dtype != torch.uint8 or packed.dim() != 2:
+        raise ValueError(f"packed must be a 2-D uint8 tensor, got {packed.dtype} {tuple(packed.shape)}")
+    m, width = packed.shape
+    if width % (block_n // 4):
+        raise ValueError(f"packed width {width} is not a multiple of block_n/4={block_n // 4}")
+    n_pad = width * 4
+    for name, v in (("mean", mean), ("inv_std", inv_std)):
+        if v.dtype != torch.float32 or v.numel() != m:
+            raise ValueError(f"{name} must be float32 with {m} elements, got {v.dtype} {tuple(v.shape)}")
+    if y.dtype != torch.float32 or y.dim() != 2:
+        raise ValueError(f"y must be a 2-D float32 tensor, got {y.dtype} {tuple(y.shape)}")
+    if y.shape[0] > n_pad:
+        raise ValueError(f"y has {y.shape[0]} sample rows but the packing holds {n_pad}")
+    devices = {t.device for t in (packed, mean, inv_std, y)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on different devices: {sorted(map(str, devices))}")
+    return m, n_pad, int(y.shape[1])
+
+
+def gwas_dot_fused(
+    packed: torch.Tensor,     # (M, N_pad/4) uint8, tile-local layout of block_n
+    mean: torch.Tensor,       # (M,) or (M, 1) float32
+    inv_std: torch.Tensor,    # (M,) or (M, 1) float32
+    y: torch.Tensor,          # (n_rows <= N_pad, P) float32; missing rows read as 0
+    *,
+    n_samples: int,
+    dof: int,
+    block_n: int,
+    block_p: int = 256,
+    input_dtype: str = "fp32",
+    eps: float = 1e-12,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused (r, t) float32 ``(M, P)`` for one genotype batch.
+
+    ``block_n`` is a parameter of the packed *layout* only.  ``block_p`` is
+    the trait-axis chunk of the plain version (CPU tensors), which keeps any
+    decomposition of the trait axis into multiples of it bitwise-identical;
+    the kernel's own tiles are fixed in the source and its sums run in one
+    order whatever the shape.
+    """
+    global launches
+    m, n_pad, p = _check(packed, mean, inv_std, y, block_n, input_dtype)
+    device = packed.device
+    if device.type == "cpu":
+        codes = unpack_tiled(packed, block_n)
+        if y.shape[0] < n_pad:
+            y = torch.cat([y, y.new_zeros((n_pad - y.shape[0], p))])
+        return gwas_dot_ref(
+            codes, mean.reshape(-1), inv_std.reshape(-1), y,
+            n_samples=n_samples, dof=dof, eps=eps, input_dtype=input_dtype,
+            trait_tile=block_p,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"gwas_dot runs on cuda or cpu tensors, not {device.type}")
+    packed = packed.contiguous()
+    mean = mean.reshape(-1).contiguous()
+    inv_std = inv_std.reshape(-1).contiguous()
+    y = y.contiguous()
+    r = torch.empty((m, p), dtype=torch.float32, device=device)
+    t = torch.empty((m, p), dtype=torch.float32, device=device)
+    fn = _launcher()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            packed.data_ptr(), mean.data_ptr(), inv_std.data_ptr(), y.data_ptr(),
+            r.data_ptr(), t.data_ptr(),
+            m, n_pad, p, int(y.shape[0]), int(packed.shape[1]), int(block_n),
+            float(n_samples), float(dof), float(eps),
+            1 if input_dtype == "bf16" else 0, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gwas_dot kernel launch failed: cudaError_t {err}")
+    launches += 1
+    return r, t

@@ -1,0 +1,295 @@
+"""TorchGWAS-equivalent command line for the PyTorch/CUDA port: the ``scan``
+subcommand over ``repro_torch.api``, with the reference CLI's flags and
+output schema plus ``--device``.
+
+    python -m repro_torch.launch.gwas scan \
+        --genotypes cohort.bed --pheno panel.tsv --covar covars.tsv \
+        --out results/ [--engine fused] [--device cpu] [--writer tsv,npz]
+
+``scan`` binds a Study, plans the grid, and streams the session's events
+through result writers — hits land in sorted ``hits.tsv`` batch by batch,
+per-trait best and per-marker QC follow at close, and ``summary.json``
+records the run.  The scan runs on the CUDA card unless ``--device cpu``
+is given.  The reference's ``grm``, ``merge``, ``report`` and ``serve``
+subcommands are not ported yet.  The flags-only invocation (no subcommand)
+means ``scan``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+from repro_torch.core.association import AssocOptions
+from repro_torch.core.engines import available_engines
+from repro_torch.runtime.workqueue import available_backends
+
+SUBCOMMANDS = ("scan",)
+NOT_PORTED = ("grm", "merge", "report", "serve")
+
+
+# ------------------------------------------------------------------- scan
+
+
+def build_scan_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.gwas scan", description=__doc__)
+    ap.add_argument("--genotypes", required=True,
+                    help=".bed / .bgen / .npy / .npz — one file, a glob "
+                         "('cohort_chr*.bed'), or a comma-separated list")
+    ap.add_argument("--pheno", required=True, help="phenotype table (FID IID trait...)")
+    ap.add_argument("--covar", default=None, help="covariate table")
+    ap.add_argument("--out", required=True, help="output directory")
+    ap.add_argument("--writer", default="tsv",
+                    help="comma list of result writers (see "
+                         "repro_torch.api.available_writers()); default tsv")
+    ap.add_argument("--engine", default="dense", choices=available_engines())
+    ap.add_argument("--mode", default="mp", choices=["mp", "sample"])
+    ap.add_argument("--dof-mode", default="paper", choices=["paper", "exact"])
+    ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"])
+    ap.add_argument("--input-dtype", default="fp32", choices=["fp32", "bf16"],
+                    help="fused kernel GEMM input dtype (the epilogue stays "
+                         "fp32 either way)")
+    ap.add_argument("--batch-markers", type=int, default=8192)
+    ap.add_argument("--trait-block", type=int, default=0,
+                    help="tile the trait axis into blocks of this width "
+                         "(2-D scan grid; 0 = unblocked; rounded up to a "
+                         "multiple of the block-p compute tile).  Peak "
+                         "device memory then scales with the block, not "
+                         "the panel; results are bitwise-identical either "
+                         "way")
+    ap.add_argument("--block-p", type=int, default=256,
+                    help="panel-axis compute tile: the fused kernel's p-tile "
+                         "and the dense/lmm GEMM chunk; trait blocks align "
+                         "to it")
+    ap.add_argument("--panel-resident-blocks", type=int, default=4,
+                    help="how many panel blocks the device LRU keeps staged")
+    ap.add_argument("--hit-spill-rows", type=int, default=2_000_000,
+                    help="spill buffered hit rows to npz parts under --out "
+                         "once this many are resident in RAM")
+    ex = ap.add_argument_group("multi-device executor")
+    ex.add_argument("--devices", type=int, default=1,
+                    help="executor slots draining the scan grid (0 = every "
+                         "visible device; 1 = the serial walk).  Results "
+                         "are bitwise-identical to a single-device scan")
+    ex.add_argument("--placement", default="marker-major",
+                    choices=["marker-major", "trait-major"],
+                    help="cell placement: marker-major reuses each staged "
+                         "genotype batch across its trait blocks, "
+                         "trait-major keeps one panel block resident per "
+                         "device while re-reading the genotype stream")
+    ex.add_argument("--lease-batches", type=int, default=2,
+                    help="work items leased per scheduler claim (work "
+                         "stealing splits at marker-batch granularity)")
+    ex.add_argument("--exec-backend", default="threads",
+                    choices=sorted(available_backends()),
+                    help="scheduler backend, one of: "
+                         f"{', '.join(sorted(available_backends()))}.  "
+                         "threads keeps the lease table in-process; "
+                         "shared-fs puts it on the filesystem next to "
+                         "--checkpoint-dir so N independent processes "
+                         "(across hosts) drain one grid — run the same "
+                         "command on each host")
+    ex.add_argument("--host-id", default=None,
+                    help="this process's identity in the shared-fs lease "
+                         "table (default hostname-pid); must be unique per "
+                         "live process")
+    ex.add_argument("--slot-prefetch", type=int, default=1,
+                    help="per-device look-ahead depth: claim and decode the "
+                         "next marker batch while the current one computes "
+                         "(0 = unpipelined worker; output is bitwise-"
+                         "identical either way)")
+    ex.add_argument("--autotune-lease", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="shrink --lease-batches at runtime as the grid "
+                         "drains (guided self-scheduling) and when workers "
+                         "report high wait share; chosen values land in "
+                         "summary.json under executor.autotune")
+    ex.add_argument("--lease-ttl", type=float, default=60.0,
+                    help="shared-fs heartbeat expiry in seconds: a lease "
+                         "not refreshed for this long counts as a dead "
+                         "host's and is stolen (safe either way — cells "
+                         "are idempotent; this only tunes reclaim latency)")
+    ap.add_argument("--progress", action="store_true",
+                    help="live per-cell progress line on stderr (auto when "
+                         "stderr is a tty)")
+    lmm = ap.add_argument_group("mixed model (--engine lmm)")
+    lmm.add_argument("--loco", action="store_true",
+                     help="leave-one-chromosome-out GRM (needs a multi-file fileset)")
+    lmm.add_argument("--grm-method", default="std", choices=["std", "centered"])
+    lmm.add_argument("--grm-batch-markers", type=int, default=4096)
+    lmm.add_argument("--lmm-delta", type=float, default=None,
+                     help="pin the variance ratio se^2/sg^2 (skip the REML fit)")
+    lmm.add_argument("--lmm-epilogue", default="dense", choices=["dense", "fused"])
+    ap.add_argument("--maf-min", type=float, default=0.0)
+    ap.add_argument("--hit-threshold", type=float, default=7.301,
+                    help="-log10 p threshold (default genome-wide 5e-8)")
+    ap.add_argument("--no-sparse-epilogue", action="store_true",
+                    help="compute the full dense -log10 p tile per cell "
+                         "instead of the threshold-compacted sparse epilogue "
+                         "(identical output, slower; for audits)")
+    ap.add_argument("--hit-capacity", type=int, default=4096,
+                    help="per-cell compacted hit-buffer slots; overflow "
+                         "falls back to the dense pull for that cell")
+    ap.add_argument("--exclude-related", action="store_true")
+    ap.add_argument("--multivariate", action="store_true")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--io-workers", type=int, default=2)
+    ap.add_argument("--genotype-staging", default="auto",
+                    choices=["auto", "packed", "dense"],
+                    help="H2D staging currency: 'packed' "
+                         "stages raw 2-bit PLINK bytes with device-side "
+                         "decode (~16x less transfer, bitwise-identical "
+                         "output), 'dense' stages decoded float32; 'auto' "
+                         "picks packed whenever the source supports it")
+    ap.add_argument("--packed-cache-mb", type=int, default=256,
+                    help="shared packed-slab host cache budget (scan, GRM, "
+                         "and serve warm windows share one read per batch)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the scan runs: cuda (default; an error when "
+                         "no card is present), cuda:<i>, or cpu")
+    return ap
+
+
+# Historical entry point compatibility: the flags-only invocation parses
+# with the scan parser.
+build_parser = build_scan_parser
+
+
+def cmd_scan(argv) -> None:
+    from repro_torch.api import ExecSpec, GridSpec, IOSpec, LmmSpec, Study, get_writer
+
+    args = build_scan_parser().parse_args(argv)
+    if args.exec_backend != "threads" and not args.checkpoint_dir:
+        raise SystemExit(
+            f"--exec-backend {args.exec_backend} coordinates processes "
+            "through the checkpoint directory (lease table + manifest); "
+            "pass --checkpoint-dir (the SAME path on every host)"
+        )
+    os.makedirs(args.out, exist_ok=True)
+
+    try:
+        study = Study.from_files(
+            args.genotypes, args.pheno, args.covar,
+            exclude_related=args.exclude_related,
+        )
+    except ValueError as e:
+        if "missing from the tables" in str(e):
+            raise SystemExit(str(e)) from None
+        raise
+    plan = study.plan(
+        engine=args.engine,
+        grid=GridSpec(
+            batch_markers=args.batch_markers,
+            trait_block=args.trait_block,
+            block_p=args.block_p,
+            panel_resident_blocks=args.panel_resident_blocks,
+        ),
+        lmm=(
+            LmmSpec(
+                loco=args.loco,
+                grm_method=args.grm_method,
+                grm_batch_markers=args.grm_batch_markers,
+                delta=args.lmm_delta,
+                epilogue=args.lmm_epilogue,
+            )
+            if args.engine == "lmm" else None
+        ),
+        io=IOSpec(io_workers=args.io_workers, spill_dir=args.out,
+                  hit_spill_rows=args.hit_spill_rows,
+                  genotype_staging=args.genotype_staging,
+                  packed_cache_mb=args.packed_cache_mb),
+        executor=ExecSpec(devices=args.devices, placement=args.placement,
+                          lease_batches=args.lease_batches,
+                          slot_prefetch=args.slot_prefetch,
+                          autotune_lease=args.autotune_lease,
+                          backend=args.exec_backend, host_id=args.host_id,
+                          lease_ttl=args.lease_ttl),
+        options=AssocOptions(dof_mode=args.dof_mode, precision=args.precision),
+        mode=args.mode,
+        hit_threshold_nlp=args.hit_threshold,
+        maf_min=args.maf_min,
+        multivariate=args.multivariate,
+        checkpoint_dir=args.checkpoint_dir,
+        input_dtype=args.input_dtype,
+        sparse_epilogue=not args.no_sparse_epilogue,
+        hit_capacity=args.hit_capacity,
+        device=args.device,
+    )
+    # Writers resolve BEFORE the expensive amortized prepare (GRM/REML for
+    # lmm can take hours at scale; a typo'd --writer must fail in
+    # milliseconds, not after it).
+    writers = [
+        get_writer(name)(args.out, spill_rows=args.hit_spill_rows)
+        for name in args.writer.split(",") if name
+    ]
+    session = plan.run(resume=not args.no_resume)
+    if args.progress or sys.stderr.isatty():
+        # Live progress off the session metrics hook: cells done, markers/s,
+        # device count — one line, rewritten in place.
+        session.progress = lambda m: print(
+            f"\r{m.progress_line()}", end="", file=sys.stderr, flush=True
+        )
+    # wall_s covers the scan itself, not the amortized setup — the same
+    # accounting the historical CLI reported.
+    t0 = time.time()
+    wsum = session.stream_to(*writers)
+    wall = time.time() - t0
+    if session.progress is not None:
+        print(file=sys.stderr)  # finish the \r progress line
+
+    summary = {
+        "markers": session.n_markers,
+        "samples": session.n_samples,
+        "traits": session.n_traits,
+        "excluded_related": study.excluded_samples,
+        "dof": session.dof,
+        "hits": int(wsum.get("hits", 0)),
+        "lambda_gc": wsum.get("lambda_gc"),
+        "wall_s": wall,
+        "markers_per_s": session.n_markers / wall,
+        "engine": args.engine,
+        "device": str(session.prepared.device),
+        "sparse_epilogue": not args.no_sparse_epilogue,
+        # The *resolved* staging currency ("auto" negotiates per source)
+        "genotype_staging": session.prepared.ctx.genotype_staging,
+        "writers": [w.name for w in writers],
+        "genotype_shards": getattr(study.source, "n_shards", 1),
+        "trait_block": args.trait_block,
+        "trait_blocks": session.n_trait_blocks,
+        "grid_cells": session.n_batches * session.n_trait_blocks,
+        "executor": session.executor_info,
+        "metrics": session.metrics.summary(),
+    }
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary, indent=1))
+    if "hits_tsv" in wsum:
+        print(f"hits: {wsum['hits_tsv']}")
+
+
+# ------------------------------------------------------------------- main
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in NOT_PORTED:
+        raise SystemExit(
+            f"the {argv[0]!r} subcommand is not ported to repro_torch yet; "
+            "use python -m repro.launch.gwas for it"
+        )
+    try:
+        if argv and argv[0] in SUBCOMMANDS:
+            return cmd_scan(argv[1:])
+        return cmd_scan(argv)
+    except BrokenPipeError:
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        return
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,13 @@ import pytest
 
 from repro.io import synth
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips without one)"
+    )
+
+
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Tooling byproducts that may legitimately appear in the checkout.
 _TREE_IGNORED = {".pytest_cache", "__pycache__", ".hypothesis"}
