@@ -1,32 +1,47 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) end to end on one NVIDIA
-card and hold its hand-written kernel against the plain PyTorch version.
+card and hold its hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
 
-  device      card name and count, ``nvidia-smi`` name and power limit
-  build       nvcc build of every kernel source, from this checkout
-  kernel      gwas_dot kernel vs its plain version on the card, at one scan
-              cell (M=4096, N=23000, P=1024) and a ragged shape, fp32 and
-              bf16; kernel/plain/library times (CUDA events) and the bound
-  scan        the main path: ``gwas scan --engine fused`` through
-              Study.from_arrays(PlinkBed) -> plan -> ScanSession -> TsvWriter
-              on a synthetic cohort at the paper workload's width (N=23,000
-              samples, P=2,048 traits, 12 covariates), depth cut to 8,192
-              markers (2 batches x 2 trait blocks); launches counted
-  cross       the same cohort on the dense engine (a torch.matmul GEMM):
-              same hits outside a +/-0.05 band, values within the fused
-              oracle tolerances, lambda_gc within 1e-3
-  identities  1,024 markers at full N and P: sparse == dense epilogue,
-              blocked == unblocked trait grid, packed == dense staging, bitwise
-  cli         ``python -m repro_torch.launch.gwas scan --engine fused`` on a
-              small cohort in a temporary directory
+  device          card name and count, ``nvidia-smi`` name and power limit
+  build           nvcc build of every kernel source, from this checkout
+  kernel          gwas_dot kernel vs its plain version on the card, at one
+                  scan cell (M=4096, N=23000, P=1024) and a ragged shape, fp32
+                  and bf16; kernel/plain/library times (CUDA events), bound
+  kernel_tstat    the tstat and screen kernels vs their plain versions at the
+                  mixed-model cell (4096, 1024) and a ragged (1000, 300):
+                  kernel/plain times and the bound
+  scan            the fused path: ``gwas scan --engine fused`` through
+                  Study.from_arrays(PlinkBed) -> plan -> ScanSession ->
+                  TsvWriter on a synthetic cohort at the paper workload's
+                  width (N=23,000 samples, P=2,048 traits, 12 covariates),
+                  depth cut to 8,192 markers (2 batches x 2 trait blocks)
+  cross           the same cohort on the dense engine (a torch.matmul GEMM):
+                  same hits outside a +/-0.05 band, values within the fused
+                  oracle tolerances, lambda_gc within 1e-3
+  identities      1,024 markers at full N and P: sparse == dense epilogue,
+                  blocked == unblocked trait grid, packed == dense staging
+  lmm_scan        the mixed-model path: ``gwas scan --engine lmm
+                  --lmm-epilogue fused`` on a structured cohort at the same
+                  width (N=23,000, P=2,048, 12 covariates, M=8,192), delta
+                  pinned at (1-h2)/h2; streamed GRM, eigendecomposition and
+                  rotation times; every planted effect must be a hit
+  lmm_identities  N=4,096, M=2,048 in 2 PLINK shards, P=512, REML and LOCO:
+                  fused sparse == fused dense-audit (the tstat kernel),
+                  blocked == unblocked, packed == dense staging, bitwise; the
+                  fused epilogue vs the dense one at the oracle tolerances
+  cli             ``python -m repro_torch.launch.gwas scan`` with
+                  ``--engine fused``, and ``--engine lmm --lmm-epilogue fused
+                  --loco`` on a split fileset, on a small cohort; KING kinship
+                  on the card vs the CPU
 
-then a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
-without a CUDA device it exits 1 and prints no result.
+Each path's launch counts are set to 0 just before it runs and read just
+after.  Then come a ``kernels`` JSON line, the ``nvidia-smi`` line, and as
+the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits non-zero; without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -56,8 +71,26 @@ KERNEL_SHAPES = (("cell", (4096, 23000, 1024)), ("ragged", (1000, 1003, 300)))
 SCAN = dict(n_samples=23000, n_markers=8192, n_traits=2048, n_covariates=12,
             n_causal=32, effect_size=0.06, batch_markers=4096, trait_block=1024)
 IDENTITY_MARKERS = 1024
-# fused-engine oracle tolerances (tests/test_oracle.py)
-TOL_R, TOL_T, TOL_NLP = 5e-5, (5e-4, 5e-4), (5e-3, 1e-2)
+# fused-engine oracle tolerances (tests/test_oracle.py): r, t (rel, abs),
+# nlp (rel, abs)
+FUSED_TOL = (5e-5, (5e-4, 5e-4), (5e-3, 1e-2))
+# the mixed-model scan: a structured cohort at the same width; delta pinned
+# at (1 - h2) / h2 (REML is host numpy and would dominate the phase).  With
+# N > M every marker lies in the GRM's range, where the background's
+# variance is h2 * N / M + 1 - h2 = 1.72, so a planted effect b has a GLS t
+# near b * sqrt(N / 1.72) = 116 b: 0.06 gives t ~ 6.9, and ~8% of the 32
+# effects fall under the 7.301 threshold (t ~ 5.5); 0.09 gives t ~ 10.4.
+LMM_SCAN = dict(n_samples=23000, n_markers=8192, n_traits=2048, n_covariates=12,
+                h2=0.4, n_causal=32, effect_size=0.09, batch_markers=4096,
+                trait_block=1024, delta=1.5)
+LMM_IDENT = dict(n_samples=4096, n_markers=2048, n_shards=2, n_traits=512,
+                 n_covariates=12, batch_markers=1024, trait_block=256)
+# fused vs dense lmm epilogue (tests/test_oracle.py): the same r, t within
+# 1e-4 and nlp within 1e-3, absolute
+LMM_EPILOGUE_TOL = (0.0, (0.0, 1e-4), (0.0, 1e-3))
+TSTAT_SHAPES = (("cell", (4096, 1024)), ("ragged", (1000, 300)))
+TSTAT_CAPACITY = 4096
+T_RTOL = 2e-6
 
 
 def emit(obj: dict) -> None:
@@ -69,8 +102,9 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, reps: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+def cuda_ms(fn, reps: int = 3, inner: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of ``inner`` back-to-back calls
+    of ``fn``, per call, after one warm-up."""
     import torch
 
     fn()
@@ -80,21 +114,41 @@ def cuda_ms(fn, reps: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def bytes_bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import tstat as ts
+    from repro_torch.kernels.gwas_dot import gwas_dot as gd
+
+    gd.launches = 0
+    ts.tstat_launches = 0
+    ts.screen_launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import tstat as ts
+    from repro_torch.kernels.gwas_dot import gwas_dot as gd
+
+    return {"gwas_dot": gd.launches, "tstat": ts.tstat_launches,
+            "screen_compact": ts.screen_launches}
 
 
 def gwas_dot_bound(m: int, n: int, p: int, packed_bytes: int) -> tuple[float, str]:
     """Least time for one gwas_dot call: each input read once (packed codes,
     mean, inv_std, y), each output written once (r, t), against 2*M*N*P fp32
     FLOP on the non-tensor lanes."""
-    flops = 2.0 * m * n * p
-    nbytes = packed_bytes + 8 * m + 4 * n * p + 8 * m * p
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bytes_bound(packed_bytes + 8 * m + 4 * n * p + 8 * m * p, 2.0 * m * n * p)
 
 
 # --------------------------------------------------------------------- phases
@@ -275,9 +329,10 @@ class Collect:
 
 
 def _run(study, out_dir: str | None, **plan_kwargs):
-    """Plan, prepare and stream one scan; returns (collector, summary, timing)."""
+    """Plan, prepare and stream one scan; returns (collector, summary, timing).
+    The launch counts are the scan's own: set to 0 after the prepare (the
+    lmm setup runs no kernel of this repo) and read when the stream ends."""
     from repro_torch.api import TsvWriter
-    from repro_torch.kernels.gwas_dot import gwas_dot as gd
 
     plan = study.plan(device=DEVICE, **plan_kwargs)
     t0 = time.perf_counter()
@@ -297,25 +352,36 @@ def _run(study, out_dir: str | None, **plan_kwargs):
     session.progress = progress
     col = Collect()
     writers = [col] + ([TsvWriter(out_dir)] if out_dir else [])
-    gd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     summary = session.stream_to(*writers)
     wall = time.perf_counter() - t0
-    launches = gd.launches
+    launches = read_launches()
     metrics = session.metrics.summary()
+    info = session.lmm_info
+    lmm = None if info is None else {
+        **{f"{k}_s": v for k, v in info["setup_s"].items()},
+        "scopes": info["scopes"], "loco": info["loco"],
+        "delta": ({str(k): float(v) for k, v in info["delta"].items()}
+                  if isinstance(info["delta"], dict) else float(info["delta"])),
+        "dof": session.dof,
+    }
     return col, summary, {
         "prepare_s": prepare_s, "wall_s": wall, "launches": launches,
         "step_s": metrics["step_s"], "extract_s": metrics["extract_s"],
         "decode_s": metrics["decode_s"], "cells": cells,
         "grid": [session.n_batches, session.n_trait_blocks],
         "genotype_staging": session.prepared.ctx.genotype_staging,
+        **({"lmm": lmm} if lmm else {}),
     }
 
 
-def _compare(a: Collect, b: Collect, threshold: float) -> dict:
+def _compare(a: Collect, b: Collect, threshold: float, tol=FUSED_TOL) -> dict:
     """Same hit set outside the +/-band around the threshold, values within
-    the fused oracle tolerances, lambda_gc within 1e-3."""
+    ``tol`` = (r, t (rel, abs), nlp (rel, abs)), lambda_gc within 1e-3."""
     import numpy as np
+
+    tol_r, tol_t, tol_nlp = tol
 
     ha, sa = a.hits()
     hb, sb = b.hits()
@@ -330,12 +396,12 @@ def _compare(a: Collect, b: Collect, threshold: float) -> dict:
         ra, tva, na = (float(v) for v in ta[k])
         rb, tvb, nb = (float(v) for v in tb[k])
         dr, dt, dn = max(dr, abs(ra - rb)), max(dt, abs(tva - tvb)), max(dn, abs(na - nb))
-        check(abs(ra - rb) <= TOL_R, f"hit {k}: r {ra} vs {rb}")
-        check(abs(tva - tvb) <= TOL_T[1] + TOL_T[0] * abs(tvb), f"hit {k}: t {tva} vs {tvb}")
-        check(abs(na - nb) <= TOL_NLP[1] + TOL_NLP[0] * abs(nb), f"hit {k}: nlp {na} vs {nb}")
+        check(abs(ra - rb) <= tol_r, f"hit {k}: r {ra} vs {rb}")
+        check(abs(tva - tvb) <= tol_t[1] + tol_t[0] * abs(tvb), f"hit {k}: t {tva} vs {tvb}")
+        check(abs(na - nb) <= tol_nlp[1] + tol_nlp[0] * abs(nb), f"hit {k}: nlp {na} vs {nb}")
     bn_a, bn_b = a.best.best_nlp, b.best.best_nlp
     best_dn = float(np.max(np.abs(bn_a - bn_b)))
-    check(bool(np.all(np.abs(bn_a - bn_b) <= TOL_NLP[1] + TOL_NLP[0] * np.abs(bn_b))),
+    check(bool(np.all(np.abs(bn_a - bn_b) <= tol_nlp[1] + tol_nlp[0] * np.abs(bn_b))),
           f"per-trait best nlp differs by up to {best_dn}")
     la, lb = a.lam.result()["lambda_gc"], b.lam.result()["lambda_gc"]
     check(abs(la - lb) <= 1e-3, f"lambda_gc {la} vs {lb}")
@@ -362,7 +428,7 @@ def phase_scan(tmp: str):
     study = Study.from_arrays(PlinkBed(bed), cohort.phenotypes, cohort.covariates)
     grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
     col, summary, timing = _run(study, os.path.join(tmp, "fused"), engine="fused", grid=grid)
-    check(timing["launches"] > 0, "the scan never launched the gwas_dot kernel")
+    check(timing["launches"]["gwas_dot"] > 0, "the scan never launched the gwas_dot kernel")
     hits, stats = col.hits()
     check(bool(np.isfinite(stats).all()), "non-finite hit statistics")
     found = {tuple(h) for h in hits.tolist()}
@@ -406,21 +472,219 @@ def phase_identities(tmp: str, cohort) -> None:
     canon = {}
     for name, kw in runs.items():
         col, _, timing = _run(study, None, engine="fused", **kw)
-        check(timing["launches"] > 0, f"identities/{name}: kernel not launched")
+        check(timing["launches"]["gwas_dot"] > 0, f"identities/{name}: kernel not launched")
         canon[name] = col.canonical()
-    base = canon["sparse"]
+    result = _bitwise(canon, "sparse", ("dense_epilogue", "blocked", "dense_staging"))
+    emit({"phase": "identities", "markers": m, "hits": int(len(canon["sparse"]["hits"])),
+          **result})
+
+
+def _bitwise(canon: dict, base_name: str, others) -> dict:
+    """Every emitted array of each run in ``others`` equals ``base_name``'s,
+    bit for bit."""
+    import numpy as np
+
+    base = canon[base_name]
     result = {}
-    for name in ("dense_epilogue", "blocked", "dense_staging"):
+    for name in others:
         other = canon[name]
         check(base.keys() == other.keys(), f"{name}: emitted fields differ")
         bad = [k for k in base if not (base[k].dtype == other[k].dtype
                                        and np.array_equal(base[k], other[k]))]
-        check(not bad, f"sparse vs {name}: not bitwise equal in {bad}")
+        check(not bad, f"{base_name} vs {name}: not bitwise equal in {bad}")
         result[name] = "bitwise equal"
-    emit({"phase": "identities", "markers": m, "hits": int(len(base["hits"])), **result})
+    return result
+
+
+def _tstat_inputs(m: int, p: int, dof: float, seed: int):
+    """Correlations as a mixed-model cell gives them (r ~ N(0, 1/dof) under
+    the null), a band of strong rows so the screen has survivors past the
+    buffer's capacity, and the clip edges."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    r = rng.normal(scale=1.0 / math.sqrt(dof), size=(m, p)).astype(np.float32)
+    k = min(32, m)
+    r[:k] = rng.normal(scale=8.0 / math.sqrt(dof), size=(k, p)).astype(np.float32)
+    r[0, :4] = [1.0, -1.0, 0.0, 0.99999]
+    return torch.from_numpy(r).to(DEVICE)
+
+
+def phase_kernel_tstat() -> dict:
+    """Kernels 2 and 3 against their plain versions: t at rtol 2e-6, the mask
+    wherever the two t tiles agree, the compacted indices and the count
+    exactly.  Times are per call, 20 calls back to back (r stays in L2, as
+    it does after the correlation GEMM that produces it)."""
+    import torch
+
+    from repro_torch.core.stats import t2_screen_threshold
+    from repro_torch.kernels import tstat as ts
+
+    dof = float(LMM_SCAN["n_samples"] - 2 - LMM_SCAN["n_covariates"])
+    t2 = t2_screen_threshold(7.301, dof)
+    rows = {}
+    for label, (m, p) in TSTAT_SHAPES:
+        r = _tstat_inputs(m, p, dof, seed=m + p)
+        n = m * p
+        t = ts.tstat(r, dof)
+        t0 = ts.tstat_plain(r, dof)
+        ts_, mask, counts = ts.screen_tile(r, dof, t2)
+        ts0, mask0, count0 = ts.screen_tile_plain(r, dof, t2)
+        idx, cnt = ts.screen_compact(r, dof, t2, TSTAT_CAPACITY)[1:]
+        idx0, cnt0 = ts.screen_compact_plain(r, dof, t2, TSTAT_CAPACITY)[1:]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(t).all()), f"tstat {label}: non-finite t")
+        for name, a, b in (("tstat", t, t0), ("screen", ts_, ts0)):
+            excess = (a - b).abs() - T_RTOL * b.abs()
+            check(float(excess.max()) <= 0.0, f"{name} {label}: t past rtol {T_RTOL}")
+        check(torch.equal(t, ts_), f"{label}: tstat and screen t tiles differ")
+        agree = ts_ == ts0
+        check(torch.equal(mask[agree], mask0[agree]), f"screen {label}: mask differs")
+        check(int(counts.sum()) == int(count0[0]) == int(cnt) == int(cnt0),
+              f"screen {label}: counts {int(counts.sum())} vs {int(count0[0])}")
+        check(torch.equal(idx, idx0), f"screen {label}: compacted indices differ")
+        check(int(cnt) > TSTAT_CAPACITY or label != "cell",
+              f"screen {label}: {int(cnt)} survivors do not overflow the buffer")
+        n_blocks = counts.numel()
+        for name, kernel, plain, nbytes in (
+            ("tstat", lambda: ts.tstat(r, dof), lambda: ts.tstat_plain(r, dof), 8 * n),
+            ("screen_compact", lambda: ts.screen_tile(r, dof, t2),
+             lambda: ts.screen_tile_plain(r, dof, t2), 9 * n + 4 * n_blocks),
+        ):
+            # ~6 flops per element (mul, sub, max, div, rsqrt, mul)
+            bound_ms, bound_by = bytes_bound(nbytes, 6.0 * n)
+            row = {
+                "kernel": name, "shape": label, "m": m, "p": p,
+                "max_abs_err": float(((t if name == "tstat" else ts_) - t0).abs().max()),
+                "ms": cuda_ms(kernel, inner=20), "plain_ms": cuda_ms(plain, inner=20),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                "library_ms": None,
+            }
+            if name == "screen_compact":
+                row["survivors"] = int(cnt)
+                row["wrapper_ms"] = cuda_ms(
+                    lambda: ts.screen_compact(r, dof, t2, TSTAT_CAPACITY), inner=20)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            emit({"phase": "kernel_tstat", **row})
+            if label == "cell":
+                rows[name] = row
+        del r, t, t0, ts_, ts0, mask, mask0
+    return rows
+
+
+def phase_lmm_scan(tmp: str) -> dict:
+    """The mixed-model path at the paper workload's width, through the
+    entry points a user calls; every planted effect must be a hit."""
+    import numpy as np
+
+    from repro_torch.api import GridSpec, LmmSpec, Study
+    from repro_torch.io import PlinkBed, synth
+    from repro_torch.io.plink import write_plink
+
+    cfg = LMM_SCAN
+    t0 = time.perf_counter()
+    cohort = synth.make_structured_cohort(
+        n_samples=cfg["n_samples"], n_markers=cfg["n_markers"], n_traits=cfg["n_traits"],
+        n_covariates=cfg["n_covariates"], h2=cfg["h2"], n_causal=cfg["n_causal"],
+        effect_size=cfg["effect_size"], seed=2026,
+    )
+    bed = write_plink(os.path.join(tmp, "lmm"), cohort.dosages, sample_ids=cohort.sample_ids)
+    setup_s = time.perf_counter() - t0
+    study = Study.from_arrays(PlinkBed(bed), cohort.phenotypes, cohort.covariates)
+    out = os.path.join(tmp, "lmm_out")
+    col, summary, timing = _run(
+        study, out, engine="lmm", lmm=LmmSpec(epilogue="fused", delta=cfg["delta"]),
+        grid=GridSpec(batch_markers=cfg["batch_markers"], trait_block=cfg["trait_block"]),
+    )
+    cells = timing["grid"][0] * timing["grid"][1]
+    check(timing["launches"]["screen_compact"] == cells,
+          f"the lmm scan launched the screen kernel {timing['launches']['screen_compact']} "
+          f"times, not once per cell ({cells})")
+    hits, stats = col.hits()
+    check(bool(np.isfinite(stats).all()), "non-finite hit statistics")
+    planted = {(m, t) for m, t, _ in cohort.effects}
+    missed = sorted(planted - {tuple(h) for h in hits.tolist()})
+    check(not missed, f"planted effects missing from the lmm hits: {missed}")
+    planted_t = [abs(float(st[1])) for h, st in zip(hits.tolist(), stats)
+                 if tuple(h) in planted]
+    with open(os.path.join(out, "hits.tsv")) as f:
+        tsv_rows = sum(1 for _ in f) - 1
+    check(tsv_rows == len(hits), f"hits.tsv has {tsv_rows} rows, the stream {len(hits)}")
+    emit({"phase": "lmm_scan", **cfg, "cohort_setup_s": setup_s, **timing,
+          "hits": len(hits), "planted": len(planted), "planted_abs_t": {
+              "min": min(planted_t), "median": statistics.median(planted_t)},
+          "lambda_gc": summary["lambda_gc"]})
+    return timing
+
+
+def phase_lmm_identities(tmp: str) -> dict:
+    """The port's bitwise identities on the mixed-model path (REML, LOCO over
+    two shards), and the fused epilogue against the dense one."""
+    from repro_torch.api import GridSpec, IOSpec, LmmSpec, Study
+    from repro_torch.io import open_genotypes, synth
+
+    cfg = LMM_IDENT
+    cohort = synth.make_structured_cohort(
+        n_samples=cfg["n_samples"], n_markers=cfg["n_markers"], n_traits=cfg["n_traits"],
+        n_covariates=cfg["n_covariates"], h2=0.4, n_causal=16, effect_size=0.1, seed=7,
+    )
+    beds = synth.write_split_plink(cohort, os.path.join(tmp, "ident"), n_shards=cfg["n_shards"])
+    study = Study.from_arrays(open_genotypes(",".join(beds)), cohort.phenotypes,
+                              cohort.covariates)
+    fused = LmmSpec(epilogue="fused", loco=True)
+    grid = GridSpec(batch_markers=cfg["batch_markers"], trait_block=cfg["trait_block"])
+    runs = {
+        "sparse": dict(lmm=fused, grid=grid),
+        "dense_audit": dict(lmm=fused, grid=grid, sparse_epilogue=False),
+        "unblocked": dict(lmm=fused, grid=GridSpec(batch_markers=cfg["batch_markers"])),
+        "dense_staging": dict(lmm=fused, grid=grid, io=IOSpec(genotype_staging="dense")),
+        "dense_epilogue": dict(lmm=LmmSpec(epilogue="dense", loco=True), grid=grid),
+    }
+    cols, canon, launches, info = {}, {}, {}, {}
+    for name, kw in runs.items():
+        col, _, timing = _run(study, None, engine="lmm", **kw)
+        cols[name], canon[name], launches[name] = col, col.canonical(), timing["launches"]
+        info[name] = {"wall_s": timing["wall_s"], "prepare_s": timing["prepare_s"],
+                      **timing["lmm"]}
+    check(launches["sparse"]["screen_compact"] > 0, "the sparse run never launched the screen")
+    check(launches["dense_audit"]["tstat"] > 0, "the dense-audit run never launched tstat")
+    check(launches["dense_epilogue"]["tstat"] + launches["dense_epilogue"]["screen_compact"]
+          == 0, "the dense epilogue launched a t-statistic kernel")
+    result = _bitwise(canon, "sparse", ("dense_audit", "unblocked", "dense_staging"))
+    cmp = _compare(cols["sparse"], cols["dense_epilogue"], threshold=7.301,
+                   tol=LMM_EPILOGUE_TOL)
+    emit({"phase": "lmm_identities", **cfg, "hits": int(len(canon["sparse"]["hits"])),
+          **result, "fused_vs_dense_epilogue": cmp, "launches": launches, "runs": info})
+    return launches["dense_audit"]
+
+
+def _cli(work: str, out: str, genotypes: str, files: dict, *flags) -> tuple[dict, set, float]:
+    """One ``repro_torch.launch.gwas scan`` subprocess; (summary, hit keys, s)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.gwas", "scan",
+         "--genotypes", genotypes, "--pheno", files["pheno"], "--covar", files["cov"],
+         "--out", os.path.join(work, out), "--batch-markers", "256", "--device", DEVICE,
+         *flags],
+        cwd=work, env=env, capture_output=True, text=True, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI scan {flags} failed ({proc.returncode}):\n"
+          f"{proc.stderr[-3000:]}")
+    with open(os.path.join(work, out, "summary.json")) as f:
+        summary = json.load(f)
+    with open(os.path.join(work, out, "hits.tsv")) as f:
+        next(f)
+        found = {tuple(line.split("\t")[:2]) for line in f}
+    return summary, found, wall
 
 
 def phase_cli(tmp: str) -> None:
+    import numpy as np
+
+    from repro_torch.core import kinship
     from repro_torch.io import synth
     from repro_torch.runtime.device import resolve_device
 
@@ -429,28 +693,34 @@ def phase_cli(tmp: str) -> None:
     cohort = synth.make_cohort(n_samples=500, n_markers=1200, n_traits=10,
                                n_causal=6, effect_size=0.6, seed=11)
     files = synth.write_cohort_files(cohort, os.path.join(work, "cohort"))
-    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.gwas", "scan",
-         "--genotypes", files["bed"], "--pheno", files["pheno"], "--covar", files["cov"],
-         "--out", os.path.join(work, "results"), "--engine", "fused", "--batch-markers", "256",
-         "--device", DEVICE],
-        cwd=work, env=env, capture_output=True, text=True, timeout=600,
-    )
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"CLI scan failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
-    with open(os.path.join(work, "results", "summary.json")) as f:
-        summary = json.load(f)
-    with open(os.path.join(work, "results", "hits.tsv")) as f:
-        next(f)
-        found = {tuple(line.split("\t")[:2]) for line in f}
+    split = synth.write_split_plink(cohort, os.path.join(work, "cohort"), n_shards=3)
     planted = {(cohort.marker_ids[m], f"trait{t}") for m, t, _ in cohort.effects}
-    check(planted <= found, f"CLI missed planted effects {sorted(planted - found)}")
-    check(summary["device"] == str(resolve_device(DEVICE)), f"CLI ran on {summary['device']}")
-    emit({"phase": "cli", "wall_s": wall, "hits": summary["hits"],
-          "lambda_gc": summary["lambda_gc"], "device": summary["device"],
-          "genotype_staging": summary["genotype_staging"]})
+    row = {"phase": "cli"}
+    for name, genotypes, flags in (
+        ("fused", files["bed"], ("--engine", "fused")),
+        ("lmm", ",".join(split), ("--engine", "lmm", "--lmm-epilogue", "fused", "--loco")),
+    ):
+        summary, found, wall = _cli(work, name, genotypes, files, *flags)
+        check(planted <= found, f"CLI {name} missed planted effects {sorted(planted - found)}")
+        check(summary["device"] == str(resolve_device(DEVICE)),
+              f"CLI {name} ran on {summary['device']}")
+        row[name] = {"wall_s": wall, "hits": summary["hits"], "lambda_gc": summary["lambda_gc"],
+                     "device": summary["device"],
+                     "genotype_staging": summary["genotype_staging"]}
+        if name == "lmm":
+            check(summary["lmm"]["scopes"] == 3 and summary["lmm"]["loco"],
+                  f"CLI lmm summary {summary['lmm']}")
+            row[name]["lmm"] = summary["lmm"]
+    # KING kinship products on the card against the CPU (integer counts in
+    # float32: exact on both)
+    rel = synth.make_cohort(n_samples=400, n_markers=2000, n_traits=2, n_related_pairs=5,
+                            seed=5)
+    phi = kinship.king_kinship(rel.dosages.T, device=DEVICE)
+    phi_cpu = kinship.king_kinship(rel.dosages.T, device="cpu")
+    check(np.array_equal(phi, phi_cpu), "KING kinship differs between the card and the CPU")
+    keep = kinship.greedy_unrelated(phi)
+    row["kinship"] = {"samples": 400, "excluded": int((~keep).sum()), "bitwise_vs_cpu": True}
+    emit(row)
 
 
 def main() -> int:
@@ -461,31 +731,53 @@ def main() -> int:
         return 1
     from repro_torch.runtime.device import resolve_device
 
+    t_start = time.perf_counter()
     resolve_device(DEVICE)
     info, smi = phase_device()
     phase_build()
     main_row = phase_kernel()
+    tstat_rows = phase_kernel_tstat()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         study, cohort, fused, timing = phase_scan(tmp)
         phase_cross(study, fused)
         phase_identities(tmp, cohort)
+        del study, cohort, fused
+        lmm_timing = phase_lmm_scan(tmp)
+        torch.cuda.empty_cache()
+        audit_launches = phase_lmm_identities(tmp)
         phase_cli(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    emit({"kernels": [{
+    kernels = [{
         "name": "gwas_dot",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gwas_dot.cu",
         "replaces": "src/repro/kernels/gwas_dot/gwas_dot.py:35",
-        "launches": timing["launches"],
+        "launches": timing["launches"]["gwas_dot"],
         "max_abs_err": main_row["r_max_abs_err"],
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-    }]})
+    }]
+    # tstat runs on the fused epilogue's dense-audit path, the screen on the
+    # mixed-model scan's default (sparse) path
+    for name, replaces, launches in (
+        ("screen_compact", "src/repro/kernels/tstat.py:65",
+         lmm_timing["launches"]["screen_compact"]),
+        ("tstat", "src/repro/kernels/tstat.py:19", audit_launches["tstat"]),
+    ):
+        row = tstat_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/tstat.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    emit({"phase": "done", "total_s": time.perf_counter() - t_start})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                              "count": info["count"]}}), flush=True)

@@ -220,7 +220,8 @@ class CellResult:
 @dataclass
 class PreparedScan:
     """Everything ``ScanPlan.prepare`` amortizes once per scan: the resolved
-    engine, the device step, the residualized panel store, and the 2-D grid
+    engine (setup run — GRM/REML for lmm), the device step, the residualized
+    panel store (global-panel engines only), and the 2-D grid
     decomposition."""
 
     study: Study
@@ -230,9 +231,10 @@ class PreparedScan:
     ctx: EngineContext
     step: Callable[..., dict]
     trait_blocks: list[TraitBlock]
-    panels: PanelStore
+    panels: PanelStore | None
     batches: list[MarkerBatch]
     dof: int
+    lmm_info: dict | None
     n_covariates: int
 
     @property
@@ -247,6 +249,7 @@ class PreparedScan:
         """The checkpoint identity of this scan (device and topology free);
         the same payload the ``repro`` package hashes."""
         cfg, study = self.config, self.study
+        engine_state = self.engine.state_fingerprint()
         m_total = study.source.n_markers
         return config_fingerprint(
             {
@@ -260,6 +263,7 @@ class PreparedScan:
                 "shard_boundaries": list(
                     getattr(study.source, "shard_boundaries", (0, m_total))
                 ),
+                **({"engine_state": engine_state} if engine_state else {}),
             }
         )
 
@@ -267,8 +271,9 @@ class PreparedScan:
 class ScanPlan:
     """A validated, normalized scan specification bound to a Study.
 
-    ``prepare()`` runs the amortized setup (residualization and step
-    construction); ``run()`` prepares and returns the executable
+    ``prepare()`` runs the amortized setup (residualization, engine setup —
+    the lmm engine's streamed GRM, eigendecomposition and REML live here —
+    and step construction); ``run()`` prepares and returns the executable
     ``ScanSession``.  A plan may be prepared once and run many times.
     """
 
@@ -296,6 +301,7 @@ class ScanPlan:
         engine = get_engine(config.engine)
         n_samples = study.n_samples
         phenotypes = np.asarray(study.phenotypes)
+        covariates = study.covariates
 
         # The trait axis of the 2-D scan grid.  block_p is the panel-axis
         # compute tile of every engine's step; aligning the scheduling
@@ -305,14 +311,22 @@ class ScanPlan:
             config.trait_block, quantum=config.block_p
         ).plan(study.n_traits)
 
-        # OLS panel prep (Eq. 1), amortized once into a host-side store.
-        q = covariate_basis(study.covariates, n_samples, device=device)
-        panels = PanelStore.residualized(
-            phenotypes, q, trait_blocks,
-            quantum=config.block_p,
-            max_resident=config.panel_resident_blocks,
-        )
-        n_covariates = int(q.shape[1]) - 1
+        panels: PanelStore | None = None
+        q = None
+        if engine.uses_global_panel:
+            # OLS panel prep (Eq. 1), amortized once into a host-side store.
+            # Engines that build their own panel (lmm: rotated per LOCO scope
+            # in setup_scan) skip it.
+            q = covariate_basis(covariates, n_samples, device=device)
+            panels = PanelStore.residualized(
+                phenotypes, q, trait_blocks,
+                quantum=config.block_p,
+                max_resident=config.panel_resident_blocks,
+            )
+            n_covariates = int(q.shape[1]) - 1
+        else:
+            cov = None if covariates is None else np.asarray(covariates)
+            n_covariates = 0 if cov is None else (1 if cov.ndim == 1 else cov.shape[1])
         dof = config.options.dof(n_samples, n_covariates)
         # Negotiate the H2D staging currency per source and size the shared
         # packed-slab cache the prepare workers read through.
@@ -342,12 +356,25 @@ class ScanPlan:
             trait_blocks=tuple(trait_blocks),
             panel_resident_blocks=config.panel_resident_blocks,
             input_dtype=config.input_dtype,
+            loco=config.loco,
+            grm_method=config.grm_method,
+            grm_batch_markers=config.grm_batch_markers,
+            lmm_delta=config.lmm_delta,
+            lmm_epilogue=config.lmm_epilogue,
             io_workers=config.io_workers,
             sparse_epilogue=config.sparse_epilogue,
             hit_capacity=config.hit_capacity,
             genotype_staging=genotype_staging,
         )
         engine.validate(ctx)
+        # Amortized engine setup (lmm: streamed GRM + eigendecomposition +
+        # REML + panel rotation).  Engines may override the scan dof and
+        # contribute diagnostics to the result.
+        lmm_info: dict | None = None
+        setup = engine.setup_scan(study.source, phenotypes, covariates, ctx)
+        if setup:
+            dof = int(setup.get("dof", dof))
+            lmm_info = setup.get("info")
         step = engine.build_step(ctx)
         batches = BatchPlanner(config.batch_markers).plan(study.source)
         self._prepared = PreparedScan(
@@ -361,6 +388,7 @@ class ScanPlan:
             panels=panels,
             batches=batches,
             dof=dof,
+            lmm_info=lmm_info,
             n_covariates=n_covariates,
         )
         return self._prepared
@@ -374,8 +402,8 @@ class ScanPlan:
 
 
 class _Slot:
-    """One executor slot: the engine's per-device state plus the session's
-    panel view on the same device."""
+    """One executor slot: the engine's per-device state plus — for
+    global-panel engines — the session's panel store on the same device."""
 
     def __init__(self, prepared: "PreparedScan", *,
                  step: Callable[..., dict] | None = None, label: str = "serial"):
@@ -391,8 +419,12 @@ class _Slot:
         return self.state.step(*args)
 
     def panel_block(self, batch: MarkerBatch, block: TraitBlock):
-        """The trailing step argument for one grid cell."""
-        return self.panels.device_block(block)
+        """The trailing step argument for one grid cell: the session's
+        residualized store for OLS engines, the engine device state's
+        per-scope rotated panel for the rest."""
+        if self.panels is not None:
+            return self.panels.device_block(block)
+        return self.state.panel_block(batch, block)
 
     def reset(self) -> None:
         # The panel store's staged blocks stay resident (a warm cache
@@ -602,6 +634,10 @@ class ScanSession:
         return self.prepared.dof
 
     @property
+    def lmm_info(self) -> dict | None:
+        return self.prepared.lmm_info
+
+    @property
     def hit_threshold(self) -> float:
         return self.config.hit_threshold_nlp
 
@@ -716,6 +752,7 @@ class CheckpointReplay:
             blk0 is not None and "omnibus_nlp" in self.checkpoint.load_cell(*blk0)
         )
         self.dof = None
+        self.lmm_info = None
         self.hit_threshold = None
 
     @property

@@ -27,8 +27,7 @@ class Study:
 
     ``phenotypes``/``covariates`` are already row-subset to the kept
     samples; ``keep`` maps kept rows back to the genotype source's sample
-    axis (engines subset dosage batches with it).  Relatedness exclusion is
-    not ported yet, so every sample is kept.  ``trait_names`` ride
+    axis (engines subset dosage batches with it).  ``trait_names`` ride
     along for the result writers.
     """
 
@@ -51,13 +50,16 @@ class Study:
         *,
         exclude_related: bool = False,
         trait_names: Sequence[str] | None = None,
+        device: str = "cuda",
     ) -> "Study":
         """Bind an already-aligned phenotype panel to a genotype source.
 
         ``phenotypes`` rows must match the source's sample order (use
         ``Study.from_files`` / ``repro_torch.io.align_tables`` otherwise).
-        ``exclude_related=True`` raises ``NotImplementedError`` until the
-        relatedness probe (``core/kinship.py``) is ported.
+        ``exclude_related=True`` runs the relatedness probe (KING kinship
+        products on ``device``: the CUDA card unless ``"cpu"`` is asked for)
+        and drops one sample of each related pair before anything
+        downstream sees the panel.
         """
         n = source.n_samples
         phenotypes = np.asarray(phenotypes)
@@ -73,13 +75,16 @@ class Study:
                     f"covariates rows ({covariates.shape[0]}) != genotype samples ({n})"
                 )
 
-        if exclude_related:
-            raise NotImplementedError(
-                "exclude_related needs core/kinship.py, which arrives with the "
-                "port's mixed-model slice"
-            )
         keep = np.ones(n, bool)
         excluded = 0
+        if exclude_related:
+            from repro_torch.core.kinship import exclude_related as _exclude
+
+            probe = source.read_dosages(0, min(source.n_markers, 4096)).T
+            keep, _, _ = _exclude(probe, device=device)
+            excluded = int((~keep).sum())
+            phenotypes = phenotypes[keep]
+            covariates = covariates[keep] if covariates is not None else None
 
         if trait_names is None:
             trait_names = tuple(f"trait{j}" for j in range(phenotypes.shape[1]))
@@ -102,6 +107,7 @@ class Study:
         *,
         exclude_related: bool = False,
         impute_missing: bool = True,
+        device: str = "cuda",
     ) -> "Study":
         """Open a genotype container/fileset and align tables by sample id.
 
@@ -109,6 +115,7 @@ class Study:
         (subset the container first).  NaN phenotype cells are mean-imputed
         per trait when ``impute_missing`` (matching the CLI's historical
         behavior); pass False to keep NaNs and handle them upstream.
+        ``device`` runs the relatedness probe (``exclude_related``).
         """
         from repro_torch.io import align_tables, open_genotypes, read_table
 
@@ -127,6 +134,7 @@ class Study:
             source, y, c,
             exclude_related=exclude_related,
             trait_names=tuple(ptable.names),
+            device=device,
         )
 
     # ---------------------------------------------------------------- shape

@@ -4,7 +4,10 @@ Public surface:
     AssocOptions, assoc_from_standardized, correlation  — the kernel (Eq. 2-3)
     covariate_basis, residualize_and_standardize        — Eq. 1
     stats                                               — t/p epilogue, lambda_GC
-    engines                                             — the dense and fused steps
+    engines                                             — the dense, fused and lmm steps
+    grm, lmm                                            — mixed-model wing (streamed GRM,
+                                                          REML + one-time rotation)
+    kinship                                             — relatedness exclusion
 """
 from repro_torch.core.association import (
     AssocOptions,

@@ -133,7 +133,9 @@ def correlation(
     in ``trait_tile``-wide column chunks (last chunk ragged) instead of one
     panel-wide product.  GEMM libraries group accumulators differently per
     output width, so the only way two decompositions of the trait axis agree
-    bitwise is to run the *same* fixed-width tiles in both.
+    bitwise is to run the *same* fixed-width tiles in both.  Each chunk is
+    made contiguous, so a chunk cut from a wide panel and the same columns
+    staged as their own block reach the GEMM with one layout.
     """
     if precision == "bf16":
         # bf16 inputs, fp32 accumulation: products of bf16 values are exact
@@ -143,7 +145,7 @@ def correlation(
     p = y_std.shape[1]
     if trait_tile is not None and 0 < trait_tile < p:
         r = torch.cat(
-            [g_std @ y_std[:, i : i + trait_tile] for i in range(0, p, trait_tile)],
+            [g_std @ y_std[:, i : i + trait_tile].contiguous() for i in range(0, p, trait_tile)],
             dim=1,
         )
     else:
@@ -227,6 +229,8 @@ def sparse_epilogue_outputs(
     t: torch.Tensor,
     dof: float,
     plan: SparseEpilogue,
+    *,
+    screen: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> dict[str, torch.Tensor]:
     """Screen one masked (M, P) statistic tile on t^2 and compact survivors.
 
@@ -241,16 +245,23 @@ def sparse_epilogue_outputs(
         hit_r/hit_t      (capacity,) f32 — gathered stats; 0 in padding
         screen_count     () int32 — total screened lanes; > capacity means
                          the buffer overflowed (host fallback)
+
+    ``screen`` optionally supplies ``(hit_idx, screen_count)`` from the fused
+    screen kernel (``kernels.tstat.screen_compact``) in place of the
+    compaction here; the layout of the result is the same either way.
     """
     del dof  # the refine is host-side; kept for call-site symmetry
     t2 = t * t
     best_row = torch.argmax(t2, dim=0).to(torch.int32)
     best_t = torch.gather(t, 0, best_row[None, :].to(torch.int64))[0]
-    keep = t2.reshape(-1) >= plan.t2_screen
-    screen_count = torch.sum(keep).to(torch.int32)
-    found = torch.nonzero(keep).reshape(-1)[: plan.capacity].to(torch.int32)
-    idx = torch.full((plan.capacity,), -1, dtype=torch.int32, device=t.device)
-    idx[: found.shape[0]] = found
+    if screen is None:
+        keep = t2.reshape(-1) >= plan.t2_screen
+        screen_count = torch.sum(keep).to(torch.int32)
+        found = torch.nonzero(keep).reshape(-1)[: plan.capacity].to(torch.int32)
+        idx = torch.full((plan.capacity,), -1, dtype=torch.int32, device=t.device)
+        idx[: found.shape[0]] = found
+    else:
+        idx, screen_count = screen
     slot = idx >= 0
     safe = torch.clamp(idx, min=0).to(torch.int64)
     zero = torch.zeros((), dtype=t.dtype, device=t.device)

@@ -10,15 +10,18 @@ An engine owns both halves of one batch's journey:
                  summary tiles
 
 Engines register by name (``@register_engine``); the executor never branches
-on engine identity.  This port carries the two OLS engines: ``dense`` (a
+on engine identity.  This port carries the two OLS engines, ``dense`` (a
 PyTorch GEMM over float dosages) and ``fused`` (the hand-written CUDA
-``gwas_dot`` kernel over 2-bit packed genotypes).  The mixed-model engine
-and sharding meshes are refused with ``NotImplementedError``.
+``gwas_dot`` kernel over 2-bit packed genotypes), and the mixed-model engine
+``lmm`` (streamed GRM, rotation, then the correlation epilogue; its fused
+epilogue runs the hand-written CUDA t-statistic and screen kernels of
+``kernels/tstat.py``).  Sharding meshes are refused.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -29,6 +32,7 @@ from repro_torch.core import stats as _stats
 from repro_torch.core.association import (
     AssocOptions,
     assoc_from_standardized,
+    correlation,
     plan_sparse_epilogue,
     sparse_epilogue_outputs,
     standardize_genotype_batch,
@@ -43,20 +47,16 @@ __all__ = [
     "DeviceLRU",
     "DenseEngine",
     "FusedEngine",
+    "LMMEngine",
     "register_engine",
     "get_engine",
     "available_engines",
     "build_dense_step",
     "build_fused_step",
+    "build_lmm_step",
     "host_batch_from_reference",
     "resolve_genotype_staging",
 ]
-
-_NOT_PORTED_LMM = (
-    "the mixed-model engine ('lmm', with the _tstat_kernel/_screen_kernel "
-    "ports) arrives with the port's mixed-model slice"
-)
-
 
 class DeviceLRU:
     """Small keyed cache of device-staged tensors with LRU eviction.
@@ -177,6 +177,12 @@ class EngineContext:
     # fused kernel GEMM input dtype ("fp32" | "bf16"); the epilogue (t,
     # -log10 p, argmax) always runs fp32
     input_dtype: str = "fp32"
+    # mixed-model knobs (consumed by the lmm engine only)
+    loco: bool = False
+    grm_method: str = "std"
+    grm_batch_markers: int = 4096
+    lmm_delta: float | None = None
+    lmm_epilogue: str = "dense"
     io_workers: int = 2
     sparse_epilogue: bool = False
     hit_capacity: int = 4096
@@ -278,7 +284,8 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 class EngineDeviceState:
     """Everything an engine stages onto the scan's device — an executor
     slot: the step, and the placement of each claimed batch's arrays on
-    ``ctx.device``."""
+    ``ctx.device``.  Host-side amortized state (GRM/REML results, rotated
+    panels) stays on the engine; staged tensors live here."""
 
     def __init__(self, engine: "ScanEngine", ctx: "EngineContext",
                  *, step: Callable[..., dict] | None = None):
@@ -310,7 +317,10 @@ class ScanEngine:
     """Engine interface; subclasses register with ``@register_engine``.
 
     Every engine's step takes the cell's trait-block panel slice as its
-    trailing argument, served by the session's residualized ``PanelStore``.
+    trailing argument.  ``uses_global_panel`` says who serves it: the
+    session's residualized ``PanelStore`` (OLS engines), or the engine
+    device state's ``panel_block`` (the lmm engine, whose panels vary per
+    LOCO scope as well as per block).
     """
 
     name: str = "?"
@@ -320,10 +330,13 @@ class ScanEngine:
         """Raise for unsupported (engine, context) combinations."""
 
     def setup_scan(self, source, phenotypes, covariates, ctx: EngineContext):
-        """Optional amortized per-scan setup; may return ``{"dof", "info"}``."""
+        """Optional amortized per-scan setup (after ``validate``, before
+        ``build_step``); may return overrides ``{"dof": int, "info": dict}``."""
         return None
 
     def state_fingerprint(self) -> str | None:
+        """Summary of engine state a resume must match (the GRM spectrum);
+        folded into the checkpoint fingerprint when set."""
         return None
 
     def build_step(self, ctx: EngineContext) -> Callable[..., dict[str, torch.Tensor]]:
@@ -548,6 +561,120 @@ def build_fused_step(
     return step_packed
 
 
+def build_lmm_step(
+    *,
+    n_samples: int,
+    n_covariates: int,
+    options: AssocOptions,
+    hit_threshold: float = 7.301,
+    maf_min: float = 0.0,
+    epilogue: str = "dense",
+    block_m: int = 256,
+    block_p: int = 256,
+    sparse_epilogue: bool = False,
+    hit_capacity: int = 4096,
+    packed_input: bool = False,
+) -> Callable[..., dict[str, torch.Tensor]]:
+    """Mixed-model step: standardize -> rotate into the (whitened) GRM
+    eigenbasis -> project out the whitened design -> the unchanged
+    correlation epilogue.
+
+    Signature: ``step(g_raw, rotation, qhat, y_std)`` — the rotation matrix
+    and the whitened design basis ride in the staged args because they vary
+    per LOCO scope.  The GLS dof is structurally ``N - 2 - q`` (the whitened
+    design counts its intercept), so the epilogue always runs in exact-dof
+    mode.
+
+    ``epilogue="dense"`` computes t/p with PyTorch ops
+    (``assoc_from_standardized``); ``"fused"`` clips and masks r, then runs
+    Eq. 3 in the hand-written t-statistic kernel (``kernels.tstat.tstat``),
+    or — with ``sparse_epilogue`` — in the fused screen kernel
+    (``kernels.tstat.screen_compact``), which also screens t^2 and counts
+    the survivors.  ``block_p`` doubles as the panel-axis GEMM tile, so
+    blocked and unblocked scans compute identical tiles.
+
+    The step is a once-per-marker-batch *prolog* (decode under packed
+    staging, standardize, the (M, N) x (N, N) rotation GEMM, the whitened-
+    design projection — everything trait-independent) memoized on the
+    staged tensor's identity, plus a per-cell *epilogue* (the panel GEMM +
+    t/p), so a blocked scan pays the rotation once per marker batch.
+    """
+    if epilogue not in ("dense", "fused"):
+        raise ValueError(f"unknown lmm epilogue {epilogue!r}")
+    from repro_torch.core.residualize import residualize_genotypes
+    from repro_torch.kernels.tstat import screen_compact, tstat
+
+    opts = dataclasses.replace(options, dof_mode="exact")
+    dof = opts.dof(n_samples, n_covariates)
+    sparse = _resolve_sparse(sparse_epilogue, opts, hit_threshold, dof, hit_capacity)
+    cell_opts = (
+        dataclasses.replace(opts, sparse_epilogue=True) if sparse is not None else opts
+    )
+
+    def prolog(g_raw, rotation, qhat):
+        if packed_input:
+            from repro_torch.kernels.gwas_dot import ops as kops
+
+            g_raw = kops.decode_packed_device(g_raw, n_samples=n_samples)
+        g_std, ms = standardize_genotype_batch(g_raw)
+        g_rot = torch.matmul(g_std, rotation)
+        g_fin = residualize_genotypes(g_rot, qhat)
+        valid = ms.valid & (ms.maf >= maf_min) if maf_min > 0 else ms.valid
+        return g_fin, ms.maf, valid
+
+    def cell(g_fin, maf, valid, y_std) -> dict[str, torch.Tensor]:
+        mask = valid[:, None]
+        screen = None
+        nlp = None
+        if epilogue == "fused":
+            r = torch.clamp(
+                correlation(g_fin, y_std, n_samples, precision=opts.precision,
+                            trait_tile=block_p),
+                -1.0, 1.0,
+            )
+            # Mask before the kernel: invalid lanes map to r=0 -> t=0
+            # exactly, so the screen can never admit a masked lane.
+            r = _masked(r, mask)
+            if sparse is not None:
+                t, idx, screen_count = screen_compact(
+                    r, float(dof), sparse.t2_screen, sparse.capacity,
+                    block_m=block_m, block_p=block_p, eps=opts.eps,
+                )
+                screen = (idx, screen_count)
+            else:
+                t = tstat(r, float(dof), block_m=block_m, block_p=block_p, eps=opts.eps)
+                nlp = _masked(_stats.neglog10_p_from_t(t, dof), mask)
+        else:
+            res = assoc_from_standardized(
+                g_fin, y_std, n_samples=n_samples, n_covariates=n_covariates,
+                options=cell_opts, trait_tile=block_p,
+            )
+            r = _masked(res.r, mask)
+            t = _masked(res.t, mask)
+            if sparse is None:
+                nlp = _masked(res.neglog10p, mask)
+        out = {"r": r, "t": t, "maf": maf, "valid": valid}
+        if sparse is not None:
+            out.update(sparse_epilogue_outputs(r, t, dof, sparse, screen=screen))
+        else:
+            out["nlp"] = nlp
+            out.update(_dense_best_and_hits(nlp, t, hit_threshold))
+        return out
+
+    # One-slot memo keyed on the staged genotype tensor's identity (see
+    # build_dense_step).
+    memo: dict[str, Any] = {"g": None, "out": None}
+
+    def step(g_raw, rotation, qhat, y_std) -> dict[str, torch.Tensor]:
+        if memo["g"] is not g_raw:
+            memo["out"] = prolog(g_raw, rotation, qhat)
+            memo["g"] = g_raw
+        return cell(*memo["out"], y_std)
+
+    step.reset = lambda: memo.update(g=None, out=None)
+    return step
+
+
 # ------------------------------------------------------------------- engines
 
 
@@ -676,10 +803,182 @@ class FusedEngine(ScanEngine):
         )
 
 
+
+
+class _LMMDeviceState(EngineDeviceState):
+    """The lmm engine's share of the device: the staged per-scope
+    (rotation, qhat) pair and the per-(scope, trait-block) rotated panel
+    slices, each LRU-bounded.  The host float32 panels live on the engine."""
+
+    def __init__(self, engine: "LMMEngine", ctx: EngineContext,
+                 *, step: Callable[..., dict] | None = None):
+        super().__init__(engine, ctx, step=step)
+        # scope -> staged (rotation, qhat); evicting a scope drops its
+        # resident panel blocks with it
+        self._dev = DeviceLRU(
+            engine._DEV_SCOPES_MAX,
+            lambda sid: (
+                self.put(engine._scopes[sid].rotation),
+                self.put(engine._scopes[sid].qhat),
+            ),
+            on_evict=lambda sid: self._dev_y.drop_if(lambda k: k[0] == sid),
+        )
+        # (scope, block) -> staged panel slice
+        self._dev_y = DeviceLRU(max(1, ctx.panel_resident_blocks), self._load_panel_block)
+
+    def _load_panel_block(self, key: tuple[int, int]) -> torch.Tensor:
+        sid, block_index = key
+        blk = self.engine._trait_blocks[block_index]
+        return self.put(self.engine._scopes[sid].y_block(blk.lo, blk.hi))
+
+    def _scope(self, batch: MarkerBatch) -> int:
+        return batch.source_id if self.engine._loco else -1
+
+    def stage(self, host_batch: HostBatch) -> tuple:
+        """(genotypes, rotation, qhat): the genotype copy is fresh per batch,
+        the scope pair comes from the LRU, staged once per scope."""
+        rotation, qhat = self._dev.get(self._scope(host_batch.batch))
+        return (self.put(host_batch.device_args[0]), rotation, qhat)
+
+    def panel_block(self, batch: MarkerBatch, block: TraitBlock) -> torch.Tensor:
+        """Rotated-panel slice for one grid cell, sliced from the scope's host
+        float32 panel (whitened panel-wide at setup), which keeps the blocked
+        scan bitwise-identical to the unblocked one."""
+        return self._dev_y.get((self._scope(batch), block.index))
+
+    def reset(self) -> None:
+        """Teardown: the step memo plus the staged rotation pairs and panel
+        blocks, so a closed scan pins nothing on the device."""
+        super().reset()
+        self._dev_y.clear()
+        self._dev.clear()
+
+
 @register_engine("lmm")
 class LMMEngine(ScanEngine):
-    """Placeholder for the mixed-model engine: registered so the CLI and the
-    specs accept the reference's engine names, refused at construction."""
+    """Linear mixed model: streamed GRM + one-time rotation (``core.grm``,
+    ``core.lmm``).  ``setup_scan`` amortizes the expensive work — the GRM
+    pass and the eigendecomposition on the scan's device, REML and the panel
+    rotation on the host — once per scan (per LOCO chromosome);
+    ``prepare_batch`` then only reads genotypes, so the per-batch device cost
+    is one extra (M, N) x (N, N) GEMM on top of the OLS scan."""
+
+    uses_global_panel = False
+
+    # Scopes arrive shard-sequentially, but the prefetch window may straddle
+    # one boundary: two resident scopes bound device memory at ~2 (N, N)
+    # rotations, not one per chromosome.
+    _DEV_SCOPES_MAX = 2
 
     def __init__(self) -> None:
-        raise NotImplementedError(_NOT_PORTED_LMM)
+        self._scopes: dict[int, Any] = {}       # scope -> core.lmm.RotatedPanel
+        self._trait_blocks: tuple[TraitBlock, ...] = ()
+        self._loco = False
+        self._fingerprint: str | None = None
+        self._dof: int | None = None
+        self._n_cov: int | None = None
+
+    def validate(self, ctx: EngineContext) -> None:
+        if ctx.mode != "mp":
+            raise ValueError("lmm engine supports marker x phenotype sharding only")
+        if ctx.multivariate:
+            raise ValueError("lmm engine and the multivariate screen are exclusive")
+        if ctx.lmm_epilogue not in ("dense", "fused"):
+            raise ValueError(f"unknown lmm epilogue {ctx.lmm_epilogue!r}")
+
+    def setup_scan(self, source, phenotypes, covariates, ctx: EngineContext):
+        from repro_torch.core.grm import grm_spectrum, spectrum_fingerprint, stream_grm
+        from repro_torch.core.lmm import rotate_panel
+
+        self._trait_blocks = ctx.trait_blocks
+        # host seconds per setup stage, summed over scopes (each stage ends
+        # in a device-to-host copy, so the host clock covers its device work)
+        setup_s = {"grm": 0.0, "spectrum": 0.0, "rotate": 0.0}
+        t0 = time.perf_counter()
+        grm = stream_grm(
+            source,
+            keep=ctx.keep if ctx.excluded_samples else None,
+            batch_markers=ctx.grm_batch_markers,
+            method=ctx.grm_method,
+            maf_min=ctx.maf_min,
+            io_workers=ctx.io_workers,
+            # Same currency as the scan: packed batches flow through the
+            # shared slab cache + device decode.
+            staging=ctx.genotype_staging,
+            device=ctx.device,
+        )
+        setup_s["grm"] = time.perf_counter() - t0
+        if ctx.loco and grm.n_shards < 2:
+            raise ValueError(
+                "loco=True needs a per-chromosome fileset (>= 2 genotype shards)"
+            )
+        scopes = list(range(grm.n_shards)) if ctx.loco else [-1]
+        spectra: dict[int, np.ndarray] = {}
+        for sid in scopes:
+            t0 = time.perf_counter()
+            k = grm.loco(sid) if ctx.loco else grm.full()
+            s, u = grm_spectrum(k, device=ctx.device)
+            del k
+            t1 = time.perf_counter()
+            spectra[sid] = s
+            self._scopes[sid] = rotate_panel(phenotypes, covariates, s, u, delta=ctx.lmm_delta)
+            setup_s["spectrum"] += t1 - t0
+            setup_s["rotate"] += time.perf_counter() - t1
+        self._loco = ctx.loco
+        first = next(iter(self._scopes.values()))
+        self._dof = first.dof
+        self._n_cov = first.n_covariates
+        deltas = {sid: p.delta for sid, p in self._scopes.items()}
+        # Deltas enter the fingerprint rounded to the spectrum hash's
+        # significant-digit budget, so last-bit REML jitter is not refused.
+        delta_sig = [(sid, f"{d:.6g}") for sid, d in sorted(deltas.items())]
+        self._fingerprint = f"{spectrum_fingerprint(spectra)}:{delta_sig}"
+        info: dict[str, Any] = {
+            "grm_method": grm.method,
+            "scopes": len(scopes),
+            "loco": ctx.loco,
+            "delta": deltas if ctx.loco else first.delta,
+            "spectrum_hash": spectrum_fingerprint(spectra),
+            "setup_s": setup_s,
+        }
+        if first.reml is not None:
+            info["h2"] = first.reml.h2
+            info["delta_per_trait"] = first.reml.delta
+        return {"dof": self._dof, "info": info}
+
+    def state_fingerprint(self) -> str | None:
+        return self._fingerprint
+
+    def build_step(self, ctx: EngineContext) -> Callable[..., dict[str, torch.Tensor]]:
+        if self._dof is None:
+            raise RuntimeError("setup_scan must run before build_step")
+        return build_lmm_step(
+            n_samples=ctx.n_samples,
+            n_covariates=self._n_cov,
+            options=ctx.options,
+            hit_threshold=ctx.hit_threshold,
+            maf_min=ctx.maf_min,
+            epilogue=ctx.lmm_epilogue,
+            block_m=ctx.block_m,
+            block_p=ctx.block_p,
+            sparse_epilogue=ctx.sparse_epilogue,
+            hit_capacity=ctx.hit_capacity,
+            packed_input=ctx.genotype_staging == "packed",
+        )
+
+    def make_device_state(
+        self, ctx: EngineContext, *, step: Callable[..., dict] | None = None,
+    ) -> EngineDeviceState:
+        return _LMMDeviceState(self, ctx, step=step)
+
+    def prepare_batch(self, source: Any, batch: MarkerBatch, ctx: EngineContext) -> HostBatch:
+        """Host side only: read and subset genotypes.  The scope's rotation
+        pair is attached at staging time by the device state."""
+        if ctx.genotype_staging == "packed":
+            from repro_torch.io.packed_cache import read_packed_cached
+
+            return HostBatch(batch, (read_packed_cached(source, batch.lo, batch.hi),))
+        dosages = source.read_dosages(batch.lo, batch.hi)
+        if ctx.excluded_samples:
+            dosages = dosages[:, ctx.keep]
+        return HostBatch(batch, (np.asarray(dosages, np.float32),))

@@ -176,6 +176,7 @@ def cmd_scan(argv) -> None:
         study = Study.from_files(
             args.genotypes, args.pheno, args.covar,
             exclude_related=args.exclude_related,
+            device=args.device,
         )
     except ValueError as e:
         if "missing from the tables" in str(e):
@@ -265,9 +266,27 @@ def cmd_scan(argv) -> None:
         "executor": session.executor_info,
         "metrics": session.metrics.summary(),
     }
+    if session.lmm_info:
+        info = session.lmm_info
+        summary["lmm"] = {
+            "grm_method": info["grm_method"],
+            "loco": info["loco"],
+            "scopes": info["scopes"],
+            "spectrum_hash": info["spectrum_hash"],
+            "delta": (
+                {str(k): float(v) for k, v in info["delta"].items()}
+                if isinstance(info["delta"], dict) else float(info["delta"])
+            ),
+            **(
+                {"h2_per_trait": np.asarray(info["h2"]).round(4).tolist()}
+                if "h2" in info else {}
+            ),
+        }
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary, indent=1))
+    if "lmm" in summary:
+        print(f"lmm: scopes={summary['lmm']['scopes']} loco={summary['lmm']['loco']}")
     if "hits_tsv" in wsum:
         print(f"hits: {wsum['hits_tsv']}")
 

@@ -171,5 +171,16 @@ def test_host_batch_from_reference_copies_bytes(scan_inputs):
 
 
 def test_lmm_engine_refused():
-    with pytest.raises(NotImplementedError, match="mixed-model"):
-        engines.get_engine("lmm")
+    """The mixed-model engine refuses what it does not support: a sharding
+    mode other than mp, the multivariate screen, an unknown epilogue, and a
+    step before its per-scan setup."""
+    engine = engines.get_engine("lmm")
+    ctx = engines.EngineContext(n_samples=10, n_covariates=0, options=AssocOptions(),
+                                device=torch.device("cpu"))
+    for bad, match in ((dict(mode="sample"), "sharding"),
+                       (dict(multivariate=True), "multivariate"),
+                       (dict(lmm_epilogue="pallas"), "epilogue")):
+        with pytest.raises(ValueError, match=match):
+            engine.validate(engines.EngineContext(**{**ctx.__dict__, **bad}))
+    with pytest.raises(RuntimeError, match="setup_scan"):
+        engine.build_step(ctx)

@@ -239,15 +239,11 @@ def test_cuda_device_without_a_card_raises(cohort_files):
         study.plan(engine="fused").prepare()
 
 
-@pytest.mark.parametrize("what", ["lmm", "devices", "backend", "mesh", "multivariate", "related"])
+@pytest.mark.parametrize("what", ["devices", "backend", "mesh", "multivariate"])
 def test_unported_paths_raise_not_implemented(what, cohort_files, tmp_path):
-    from repro_torch.io import PlinkBed
-
     study = Study.from_files(cohort_files["bed"], cohort_files["pheno"], cohort_files["cov"])
     with pytest.raises(NotImplementedError):
-        if what == "lmm":
-            study.plan(engine="lmm", device="cpu").prepare()
-        elif what == "devices":
+        if what == "devices":
             study.plan(engine="fused", device="cpu", executor=ExecSpec(devices=2)).run()
         elif what == "backend":
             study.plan(engine="fused", device="cpu", checkpoint_dir=str(tmp_path),
@@ -257,9 +253,6 @@ def test_unported_paths_raise_not_implemented(what, cohort_files, tmp_path):
             study.plan(engine="fused", device="cpu", mesh=object())
         elif what == "multivariate":
             study.plan(engine="dense", device="cpu", multivariate=True)
-        elif what == "related":
-            src = PlinkBed(cohort_files["bed"])
-            Study.from_arrays(src, np.zeros((src.n_samples, 2)), exclude_related=True)
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[.\s]|$)", re.M)
