@@ -7,10 +7,16 @@ card and hold its hand-written kernels against their plain PyTorch versions.
 Phases, each printing one JSON line:
 
   device          card name and count, ``nvidia-smi`` name and power limit
-  build           nvcc build of every kernel source, from this checkout
+  build           nvcc build of every kernel source, from this checkout;
+                  ptxas registers/spills, and the count of tensor-core (HMMA)
+                  instructions in the gwas_dot library's SASS (must be > 0)
   kernel          gwas_dot kernel vs its plain version on the card, at one
                   scan cell (M=4096, N=23000, P=1024) and a ragged shape, fp32
-                  and bf16; kernel/plain/library times (CUDA events), bound
+                  and bf16; kernel/plain/library times (CUDA events), bound;
+                  at the cell, column and row splits of the call bitwise
+                  equal to the whole call; the loop's edge shapes (unaligned
+                  y rows, per-code decode, partial steps and chunks, tiles
+                  larger than the problem, all-missing rows)
   kernel_tstat    the tstat and screen kernels vs their plain versions at the
                   mixed-model cell (4096, 1024) and a ragged (1000, 300):
                   kernel/plain times and the bound
@@ -42,6 +48,12 @@ Each path's launch counts are set to 0 just before it runs and read just
 after.  Then come a ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device it exits 1 and prints no result.
+
+    python3 chip_smoke.py --only build,kernel
+
+runs the device phase and the named phases among ``build``, ``kernel`` and
+``kernel_tstat`` only (a quick check of the kernels); it prints neither the
+``kernels`` line nor the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -58,13 +70,25 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth.
+# Published H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the
+# tensor cores, TF32 and bf16 on them, and HBM3 bandwidth.
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
 HIT_BAND = 0.05
 DEVICE = "cuda:0"
 KERNEL_SHAPES = (("cell", (4096, 23000, 1024)), ("ragged", (1000, 1003, 300)))
+# The gwas_dot loop's edges: (label, M, N, P, block_n).  P=301: rows of y not
+# 16-byte aligned (4-byte copies, scalar stores); block_n 64 and 36: the
+# per-code decode (block_n/4 is not a multiple of the 32-sample step), and
+# with 36, N_pad=468 is 14.6 steps: the last step is partial and the 15
+# steps end inside a 64-sample chunk; the last: M and P under one 128 x 128
+# tile.  Each also has an all-missing row.
+KERNEL_EDGES = (("p301", 300, 1003, 301, 512), ("bn64", 200, 700, 64, 64),
+                ("bn36", 130, 460, 40, 36), ("small", 5, 77, 3, 512))
+# the bitwise split checks at the cell: column and row prefixes
+SPLIT_P, SPLIT_M = 512, 2048
 # the scan cohort: the paper workload's width (configs/gwas_ukb.py: 23,000
 # samples, 12 covariates; 20,480 traits cut to 2,048), depth cut to 8,192
 # markers in two batches, traits in two blocks
@@ -122,8 +146,8 @@ def cuda_ms(fn, reps: int = 3, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def bytes_bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_S
+def bytes_bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -144,11 +168,16 @@ def read_launches() -> dict:
             "screen_compact": ts.screen_launches}
 
 
-def gwas_dot_bound(m: int, n: int, p: int, packed_bytes: int) -> tuple[float, str]:
+def gwas_dot_bound(m: int, n: int, p: int, packed_bytes: int, dtype: str) -> tuple[float, str]:
     """Least time for one gwas_dot call: each input read once (packed codes,
-    mean, inv_std, y), each output written once (r, t), against 2*M*N*P fp32
-    FLOP on the non-tensor lanes."""
-    return bytes_bound(packed_bytes + 8 * m + 4 * n * p + 8 * m * p, 2.0 * m * n * p)
+    mean, inv_std, y), each output written once (r, t), against the product's
+    2*M*N*P FLOP on the tensor cores: three TF32 passes in fp32 mode (one
+    TF32 product cannot hold r to 2e-6), one bf16 pass in bf16 mode."""
+    nbytes = packed_bytes + 8 * m + 4 * n * p + 8 * m * p
+    flops = 2.0 * m * n * p
+    if dtype == "fp32":
+        return bytes_bound(nbytes, 3 * flops, TF32_FLOPS)
+    return bytes_bound(nbytes, flops, BF16_FLOPS)
 
 
 # --------------------------------------------------------------------- phases
@@ -181,15 +210,22 @@ def phase_build() -> None:
     wall = time.perf_counter() - t0
     ptxas = {
         s: [ln.strip() for ln in build.build_info[s]["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
         for s in sources
     }
+    # gwas_dot runs on the tensor cores: its SASS must hold HMMA instructions
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", libs["gwas_dot"]], capture_output=True,
+                          text=True, check=True).stdout
+    hmma = sum(1 for ln in sass.splitlines() if "HMMA" in ln)
     emit({"phase": "build", "sources": sources, "wall_s": wall,
           "nvcc_s": {s: build.build_info[s]["seconds"] for s in sources},
-          "libs": {s: os.path.relpath(p, HERE) for s, p in libs.items()}, "ptxas": ptxas})
+          "libs": {s: os.path.relpath(p, HERE) for s, p in libs.items()}, "ptxas": ptxas,
+          "gwas_dot_hmma": hmma})
+    check(hmma > 0, "the gwas_dot library holds no HMMA (tensor-core) instruction")
 
 
-def _kernel_inputs(m, n, p, block_n, seed):
+def _kernel_inputs(m, n, p, block_n, seed, missing_row=False):
     import numpy as np
     import torch
 
@@ -204,6 +240,9 @@ def _kernel_inputs(m, n, p, block_n, seed):
     c32 = codes[:k].astype(np.int32)
     dose = np.where(c32 == 1, mean[:k, None], 2 - c32 + (c32 >> 1)).astype(np.float32)
     y[:, :k] += 0.8 * ((dose - mean[:k, None]) * inv_std[:k, None]).T
+    if missing_row:
+        codes[-1] = 1
+        mean, inv_std, _ = ops.marker_stats_from_codes(codes)
     dev = torch.device(DEVICE)
     return (
         torch.from_numpy(ops.pack_tiled(codes, block_n)).to(dev),
@@ -213,6 +252,60 @@ def _kernel_inputs(m, n, p, block_n, seed):
     )
 
 
+def _hold_gwas_dot(label, packed, mean, inv_std, y, n, block_n, dtype):
+    """One kernel call against the plain version on the same inputs: r within
+    2e-6 (fp32) or 5e-3 (bf16), and in fp32 t within the r tolerance carried
+    through t = r sqrt(dof / (1 - r^2)).  Returns the outputs and errors."""
+    import torch
+
+    from repro_torch.kernels.gwas_dot import gwas_dot as gd
+    from repro_torch.kernels.gwas_dot import ref
+
+    p = y.shape[1]
+    dof = n - 2
+    y_pad = torch.cat([y, y.new_zeros((packed.shape[1] * 4 - n, p))])
+    r, t = gd.gwas_dot_fused(packed, mean, inv_std, y, n_samples=n, dof=dof,
+                             block_n=block_n, input_dtype=dtype)
+    r0, t0 = ref.gwas_dot_ref(ref.unpack_tiled(packed, block_n), mean, inv_std, y_pad,
+                              n_samples=n, dof=dof, input_dtype=dtype)
+    check(bool(torch.isfinite(r).all() and torch.isfinite(t).all()),
+          f"gwas_dot {label} {dtype}: non-finite output")
+    r_err = float((r - r0).abs().max())
+    t_err = float((t - t0).abs().max())
+    r_tol = 2e-6 if dtype == "fp32" else 5e-3
+    check(r_err <= r_tol, f"gwas_dot {label} {dtype}: |dr|={r_err} > {r_tol}")
+    t_tol = None
+    if dtype == "fp32":
+        # The r tolerance carried through t = r sqrt(dof / (1 - r^2)):
+        # dt/dr = sqrt(dof) / (1 - r^2)^1.5, i.e. 2e-6 sqrt(dof) at r ~ 0
+        # (~3e-4 at N = 23,000), plus 2e-6 |t| for the epilogue's own rounding.
+        slope = math.sqrt(dof) / torch.clamp(1 - r0 * r0, min=1e-6) ** 1.5
+        excess = (t - t0).abs() - (r_tol * slope + r_tol * t0.abs())
+        t_tol = 2e-6 * math.sqrt(dof)
+        check(float(excess.max()) <= 0.0,
+              f"gwas_dot {label} {dtype}: |dt|={t_err} past the propagated r tolerance")
+    return (r, t), {"r_max_abs_err": r_err, "t_max_abs_err": t_err, "r_tol": r_tol,
+                    "t_tol": t_tol}
+
+
+def _split_bitwise(packed, mean, inv_std, y, n, block_n, dtype, whole) -> None:
+    """Columns 0..SPLIT_P-1 of the whole call equal a call on those columns,
+    rows 0..SPLIT_M-1 a call on those rows, byte for byte: each output's sum
+    runs in one order whatever the shape."""
+    import torch
+
+    from repro_torch.kernels.gwas_dot import gwas_dot as gd
+
+    kw = dict(n_samples=n, dof=n - 2, block_n=block_n, input_dtype=dtype)
+    r, t = whole
+    rc, tc = gd.gwas_dot_fused(packed, mean, inv_std, y[:, :SPLIT_P].contiguous(), **kw)
+    rm, tm = gd.gwas_dot_fused(packed[:SPLIT_M], mean[:SPLIT_M], inv_std[:SPLIT_M], y, **kw)
+    check(torch.equal(rc, r[:, :SPLIT_P]) and torch.equal(tc, t[:, :SPLIT_P]),
+          f"gwas_dot {dtype}: the first {SPLIT_P} columns differ from the whole call")
+    check(torch.equal(rm, r[:SPLIT_M]) and torch.equal(tm, t[:SPLIT_M]),
+          f"gwas_dot {dtype}: the first {SPLIT_M} rows differ from the whole call")
+
+
 def phase_kernel() -> dict:
     import torch
 
@@ -220,16 +313,13 @@ def phase_kernel() -> dict:
     from repro_torch.kernels.gwas_dot import ref
 
     block_n = 512
-    rows = []
     main = None
     for label, (m, n, p) in KERNEL_SHAPES:
         packed, mean, inv_std, y = _kernel_inputs(m, n, p, block_n, seed=m + n + p)
         dof = n - 2
         n_pad = packed.shape[1] * 4
         y_pad = torch.cat([y, y.new_zeros((n_pad - n, p))])
-        codes = ref.unpack_tiled(packed, block_n)
-        g = ref.decode_standardize_ref(codes, mean, inv_std)
-        bound_ms, bound_by = gwas_dot_bound(m, n, p, packed.numel())
+        g = ref.decode_standardize_ref(ref.unpack_tiled(packed, block_n), mean, inv_std)
         for dtype in ("fp32", "bf16"):
             def kernel():
                 return gd.gwas_dot_fused(packed, mean, inv_std, y, n_samples=n, dof=dof,
@@ -239,42 +329,44 @@ def phase_kernel() -> dict:
                 return ref.gwas_dot_ref(ref.unpack_tiled(packed, block_n), mean, inv_std,
                                         y_pad, n_samples=n, dof=dof, input_dtype=dtype)
 
-            r, t = kernel()
-            r0, t0 = plain()
-            check(bool(torch.isfinite(r).all() and torch.isfinite(t).all()),
-                  f"gwas_dot {label} {dtype}: non-finite output")
-            r_err = float((r - r0).abs().max())
-            t_err = float((t - t0).abs().max())
-            r_tol = 2e-6 if dtype == "fp32" else 5e-3
-            check(r_err <= r_tol, f"gwas_dot {label} {dtype}: |dr|={r_err} > {r_tol}")
-            t_tol = None
-            if dtype == "fp32":
-                # The r tolerance carried through t = r sqrt(dof / (1 - r^2)):
-                # dt/dr = sqrt(dof) / (1 - r^2)^1.5, i.e. 2e-6 sqrt(dof) at
-                # r ~ 0 (~3e-4 at N = 23,000), plus 2e-6 |t| for the
-                # epilogue's own rounding.
-                slope = math.sqrt(dof) / torch.clamp(1 - r0 * r0, min=1e-6) ** 1.5
-                excess = (t - t0).abs() - (r_tol * slope + r_tol * t0.abs())
-                t_tol = 2e-6 * math.sqrt(dof)
-                check(float(excess.max()) <= 0.0,
-                      f"gwas_dot {label} {dtype}: |dt|={t_err} past the propagated r tolerance")
+            whole, errs = _hold_gwas_dot(label, packed, mean, inv_std, y, n, block_n, dtype)
+            if label == "cell":
+                _split_bitwise(packed, mean, inv_std, y, n, block_n, dtype, whole)
+            del whole
+            # the yardstick: one PyTorch GEMM of the same (decoded) operands
+            lib_a, lib_b = ((g, y_pad) if dtype == "fp32"
+                            else (g.to(torch.bfloat16), y_pad.to(torch.bfloat16)))
+            bound_ms, bound_by = gwas_dot_bound(m, n, p, packed.numel(), dtype)
             row = {
-                "shape": label, "m": m, "n": n, "p": p, "dtype": dtype,
-                "r_max_abs_err": r_err, "t_max_abs_err": t_err,
-                "r_tol": r_tol, "t_tol": t_tol,
+                "shape": label, "m": m, "n": n, "p": p, "dtype": dtype, **errs,
                 "kernel_ms": cuda_ms(kernel),
                 "plain_ms": cuda_ms(plain),
-                "library_ms": cuda_ms(lambda: torch.matmul(g, y_pad)) if dtype == "fp32" else None,
+                "library_ms": cuda_ms(lambda: torch.matmul(lib_a, lib_b)),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
+            if label == "cell":
+                row["split_bitwise"] = {f"p{SPLIT_P}": True, f"m{SPLIT_M}": True}
+            if dtype == "fp32":
+                # why the plain version sums in float64: the fp32 GEMM's own
+                # r error against that sum, beside the kernel's r_max_abs_err
+                r_lib = torch.clamp(torch.matmul(lib_a, lib_b) / float(n), -1.0, 1.0)
+                row["library_r_max_abs_err"] = float((r_lib - plain()[0]).abs().max())
+                del r_lib
+            del lib_a, lib_b
             row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
-            rows.append(row)
             emit({"phase": "kernel", **row})
             if label == "cell" and dtype == "fp32":
                 main = row
-        del packed, mean, inv_std, y, y_pad, codes, g
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
+        del packed, mean, inv_std, y, y_pad, g
+        torch.cuda.empty_cache()
+    for label, m, n, p, block_n in KERNEL_EDGES:
+        inputs = _kernel_inputs(m, n, p, block_n, seed=m + n + p, missing_row=True)
+        for dtype in ("fp32", "bf16"):
+            (r, t), errs = _hold_gwas_dot(label, *inputs, n, block_n, dtype)
+            check(bool((r[-1] == 0).all() and (t[-1] == 0).all()),
+                  f"gwas_dot {label} {dtype}: the all-missing row is not 0")
+            emit({"phase": "kernel", "shape": label, "m": m, "n": n, "p": p,
+                  "block_n": block_n, "dtype": dtype, **errs})
     return main
 
 
@@ -723,9 +815,18 @@ def phase_cli(tmp: str) -> None:
     emit(row)
 
 
-def main() -> int:
+QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": phase_kernel_tstat}
+
+
+def main(argv: list[str]) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", help="comma-separated phases among "
+                        f"{', '.join(QUICK_PHASES)}; skips the rest")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -734,6 +835,14 @@ def main() -> int:
     t_start = time.perf_counter()
     resolve_device(DEVICE)
     info, smi = phase_device()
+    if args.only:
+        names = args.only.split(",")
+        unknown = sorted(set(names) - set(QUICK_PHASES))
+        check(not unknown, f"--only takes {sorted(QUICK_PHASES)}, not {unknown}")
+        for name in names:
+            QUICK_PHASES[name]()
+        emit({"phase": "done", "only": names, "total_s": time.perf_counter() - t_start})
+        return 0
     phase_build()
     main_row = phase_kernel()
     tstat_rows = phase_kernel_tstat()
@@ -785,4 +894,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

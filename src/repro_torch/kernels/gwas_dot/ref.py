@@ -1,9 +1,10 @@
 """Plain PyTorch version of the fused gwas_dot kernel.
 
 The same mathematical contract as the CUDA kernel (decode -> standardize ->
-missing->0 -> GEMM/N -> clip -> t) with no tiling and fp32 everywhere.  The
-wrapper in ``gwas_dot.py`` runs it for tensors that lie on the CPU; the
-on-card check in ``chip_smoke.py`` holds the kernel against it.
+missing->0 -> GEMM/N -> clip -> t) with no tiling: fp32 operands and
+epilogue, and the sum over samples taken in float64 and rounded to fp32
+once.  The wrapper in ``gwas_dot.py`` runs it for tensors that lie on the
+CPU; the on-card check in ``chip_smoke.py`` holds the kernel against it.
 """
 from __future__ import annotations
 
@@ -52,10 +53,14 @@ def gwas_dot_ref(
     trait_tile: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(r, t) for one batch.  ``input_dtype="bf16"`` rounds g and y to bf16
-    and multiplies in fp32 (products of bf16 values are exact in fp32: the
-    "bf16 inputs, fp32 accumulation" contract).  ``trait_tile`` evaluates
-    the product in fixed-width column chunks, so any decomposition of the
-    trait axis into multiples of it computes identical columns."""
+    first (the "bf16 inputs, fp32 accumulation" contract).  The sum over
+    samples is the exactly rounded fp32 value: float64 products and sums
+    (exact products, 2^-53 sums), rounded once.  A float32 chain over the
+    paper's 23,000 samples is itself some 4e-6 off it at |r| = 0.8, which
+    would hide any kernel's own error against the 2e-6 tolerance.
+    ``trait_tile`` evaluates the product in fixed-width column chunks, so any
+    decomposition of the trait axis into multiples of it computes identical
+    columns."""
     g = decode_standardize_ref(codes, mean, inv_std)
     y = y.to(torch.float32)
     if input_dtype == "bf16":
@@ -63,6 +68,8 @@ def gwas_dot_ref(
         y = y.to(torch.bfloat16).to(torch.float32)
     elif input_dtype != "fp32":
         raise ValueError(f"unknown input_dtype {input_dtype!r}")
+    g = g.to(torch.float64)
+    y = y.to(torch.float64)
     p = y.shape[1]
     if trait_tile is not None and 0 < trait_tile < p:
         acc = torch.cat(
@@ -70,6 +77,7 @@ def gwas_dot_ref(
         )
     else:
         acc = g @ y
+    acc = acc.to(torch.float32)
     r = torch.clamp(acc / float(n_samples), -1.0, 1.0)
     t = r * torch.rsqrt(torch.clamp(1.0 - r * r, min=eps) / float(dof))
     return r, t

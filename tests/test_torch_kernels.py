@@ -1,8 +1,9 @@
 """The port's gwas_dot (its plain version, on the CPU) against the reference
 Pallas kernel run in interpret mode, at the reference's own tolerances
 (tests/test_kernels.py): fp32 r 2e-6 / t 2e-4, bf16 r 5e-3.  The CUDA kernel
-itself runs only on a card: the ``gpu`` test below holds it against the plain
-version there and skips elsewhere."""
+itself runs only on a card: the ``gpu`` tests below hold it against the plain
+version there and skip elsewhere.  An emulation of the kernel's fp32
+arithmetic (3xTF32 products, chunked accumulation) runs here."""
 import numpy as np
 import pytest
 import torch
@@ -156,25 +157,144 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         gd.gwas_dot_fused(*args.values(), **kw)
 
 
+# (M, N, P, block_n) on the card: a ragged shape, then the kernel loop's
+# edges: P=301 (y rows not 16-byte aligned), block_n 64 and 36 (the per-code
+# decode; with 36 the last step and chunk are partial), M and P under one
+# tile.  Each has an all-missing last row.
+GPU_SHAPES = [(300, 1003, 300, 512), (300, 1003, 301, 512), (200, 700, 64, 64),
+              (130, 460, 40, 36), (5, 77, 3, 512)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-def test_cuda_kernel_matches_plain_version(dtype):
+@pytest.mark.parametrize("m,n,p,bn", GPU_SHAPES)
+def test_cuda_kernel_matches_plain_version(m, n, p, bn, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel is CUDA C++ with no CPU mode")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    codes, rng = _mk(300, 1003, seed=2)
+    codes, rng = _mk(m, n, seed=m + n + p)
+    codes[-1] = 1                              # an all-missing row
     mean, inv_std, _ = ops.marker_stats_from_codes(codes)
-    y = torch.from_numpy(rng.normal(size=(1003, 300)).astype(np.float32)).to(dev)
-    packed = torch.from_numpy(ops.pack_tiled(codes, 512)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(n, p)).astype(np.float32)).to(dev)
+    packed = torch.from_numpy(ops.pack_tiled(codes, bn)).to(dev)
     mean_d, inv_d = torch.from_numpy(mean).to(dev), torch.from_numpy(inv_std).to(dev)
     before = gd.launches
-    r, t = gd.gwas_dot_fused(packed, mean_d, inv_d, y, n_samples=1003, dof=1001,
-                             block_n=512, input_dtype=dtype)
+    r, t = gd.gwas_dot_fused(packed, mean_d, inv_d, y, n_samples=n, dof=n - 2,
+                             block_n=bn, input_dtype=dtype)
     torch.cuda.synchronize()
     assert gd.launches == before + 1
-    y_pad = torch.cat([y, y.new_zeros((packed.shape[1] * 4 - 1003, 300))])
-    r0, t0 = ref.gwas_dot_ref(ref.unpack_tiled(packed, 512), mean_d, inv_d, y_pad,
-                              n_samples=1003, dof=1001, input_dtype=dtype)
+    y_pad = torch.cat([y, y.new_zeros((packed.shape[1] * 4 - n, p))])
+    r0, t0 = ref.gwas_dot_ref(ref.unpack_tiled(packed, bn), mean_d, inv_d, y_pad,
+                              n_samples=n, dof=n - 2, input_dtype=dtype)
+    assert bool((r[-1] == 0).all() and (t[-1] == 0).all())
     atol = 2e-6 if dtype == "fp32" else 5e-3
     np.testing.assert_allclose(r.cpu().numpy(), r0.cpu().numpy(), atol=atol)
+    if dtype == "fp32":
+        np.testing.assert_allclose(t.cpu().numpy(), t0.cpu().numpy(), atol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel's fp32 arithmetic, emulated (csrc/gwas_dot.cu): operands
+# split as hi = tf32_rna(x), lo = tf32_rna(x - hi); per 8-sample slice one
+# m16n8k8 mma per pass, in the order lo*hi, hi*lo, hi*hi, each modelled as
+# the exact sum of its 8 products and the accumulator, rounded once to fp32;
+# the accumulator restarts every KC samples and is added into an fp32 total.
+
+KC = 64
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: add 0x1000 to the magnitude bits and clear the
+    low 13 (round to nearest, ties away from zero)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    out = (bits & 0x80000000) | (((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000)
+    out = torch.where(out >= 2**31, out - 2**32, out)
+    return out.to(torch.int32).view(torch.float32)
+
+
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    f = x.to(torch.float32)
+    over = f.to(torch.float64).abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _emulate_kernel_fp32(g, y, *, rounding, chunk):
+    """Emulated kernel sum ``g @ y`` ((M, N) x (N, P) float32, N a multiple
+    of 8); ``chunk=None`` keeps one accumulator over all samples."""
+    rnd = (lambda v: v.to(torch.float32)) if rounding == "nearest" else _round_toward_zero
+    m, n = g.shape
+    p = y.shape[1]
+    gh = _tf32_rna(g)
+    gl = _tf32_rna(g - gh)
+    yh = _tf32_rna(y)
+    yl = _tf32_rna(y - yh)
+
+    def slices(a, b):   # exact per-slice sums, (N/8, M, P) float64
+        return torch.einsum("mkj,kjp->kmp", a.double().reshape(m, -1, 8),
+                            b.double().reshape(-1, 8, p))
+
+    passes = (slices(gl, yh), slices(gh, yl), slices(gh, yh))
+    acc = torch.zeros((m, p), dtype=torch.float32)
+    total = torch.zeros((m, p), dtype=torch.float32)
+    for s in range(n // 8):
+        for part in passes:
+            acc = rnd(acc.double() + part[s])
+        if chunk is not None and (s + 1) * 8 % chunk == 0:
+            total, acc = total + acc, torch.zeros_like(acc)
+    return total + acc
+
+
+@pytest.mark.parametrize("rounding,chunk,holds", [
+    ("nearest", KC, True),
+    ("toward_zero", KC, True),
+    # truncating adds into one accumulator over 23,000 samples drift far
+    # past the tolerance: why the kernel restarts it every KC samples
+    ("toward_zero", None, False),
+])
+def test_kernel_fp32_arithmetic_holds_reference(rounding, chunk, holds):
+    m = p = 32
+    n, bn = 23000, 512
+    codes, rng = _mk(m, n, seed=14)
+    mean, inv_std, _ = ops.marker_stats_from_codes(codes)
+    g = ref.decode_standardize_ref(torch.from_numpy(codes.astype(np.int32)),
+                                   torch.from_numpy(mean), torch.from_numpy(inv_std))
+    # trait j carries marker j at r ~ c_j, up to 0.9
+    c = np.linspace(0.0, 0.9, p)[None, :]
+    y = (np.sqrt(1 - c**2) * rng.normal(size=(n, p)) + c * g.numpy().T).astype(np.float32)
+    packed = ops.pack_tiled(codes, bn)
+    r_ref, t_ref = ref_ops.gwas_dot(packed, mean, inv_std, y, n_samples=n, dof=n - 2,
+                                    block_m=m, block_n=bn, block_p=p, interpret=True)
+    n_pad = packed.shape[1] * 4
+    g_pad = torch.nn.functional.pad(g, (0, n_pad - n))
+    y_pad = torch.nn.functional.pad(torch.from_numpy(y), (0, 0, 0, n_pad - n))
+    acc = _emulate_kernel_fp32(g_pad, y_pad, rounding=rounding, chunk=chunk)
+    r = torch.clamp(acc / float(n), -1.0, 1.0)
+    t = r * torch.rsqrt(torch.clamp(1.0 - r * r, min=1e-12) / float(n - 2))
+    assert float(np.abs(np.asarray(r_ref)).max()) > 0.85
+    r_err = float(np.abs(r.numpy() - np.asarray(r_ref)).max())
+    t_err = float(np.abs(t.numpy() - np.asarray(t_ref)).max())
+    if holds:
+        # t: 2e-4, plus the r tolerance carried through dt/dr =
+        # sqrt(dof) / (1 - r^2)^1.5 (~1,800 at r = 0.9, where one ulp of r
+        # moves t by 1.1e-4), as chip_smoke.py holds the kernel on the card
+        r_ref = torch.from_numpy(np.array(r_ref))
+        slope = np.sqrt(n - 2) / torch.clamp(1 - r_ref * r_ref, min=1e-6) ** 1.5
+        t_excess = (t - torch.from_numpy(np.array(t_ref))).abs() - (2e-4 + 2e-6 * slope)
+        assert r_err <= 2e-6 and float(t_excess.max()) <= 0.0, (r_err, t_err)
+    else:
+        assert r_err > 2e-6, r_err
+
+
+def test_tf32_split_is_exact_to_22_bits():
+    """hi + lo carries x to within 2^-22 relative; hi and lo are tf32."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=4096).astype(np.float32))
+    hi = _tf32_rna(x)
+    lo = _tf32_rna(x - hi)
+    for v in (hi, lo):
+        assert not bool((v.view(torch.int32) & 0x1FFF).any())
+    rel = ((hi.double() + lo.double() - x.double()).abs() / x.double().abs()).max()
+    assert float(rel) <= 2.0**-22
+    # ties go away from zero: 1 + 2^-11 lies halfway between two tf32 values
+    tie = torch.tensor([1 + 2.0**-11, -(1 + 2.0**-11)], dtype=torch.float32)
+    assert _tf32_rna(tie).tolist() == [1 + 2.0**-10, -(1 + 2.0**-10)]
