@@ -17,14 +17,21 @@ Phases, each printing one JSON line:
                   equal to the whole call; the loop's edge shapes (unaligned
                   y rows, per-code decode, partial steps and chunks, tiles
                   larger than the problem, all-missing rows)
-  kernel_tstat    the tstat and screen kernels vs their plain versions at the
-                  mixed-model cell (4096, 1024) and a ragged (1000, 300):
-                  kernel/plain times and the bound
+  kernel_tstat    the tstat kernel and both entries of the screen kernel (r
+                  mode: screen_compact; t mode: compact_survivors) vs their
+                  plain versions at the mixed-model cell (4096, 1024) and a
+                  ragged (1000, 300): t bitwise between tstat and the screen,
+                  idx and count exactly, then no-survivor, all-survivor, NaN,
+                  capacity-above-size and empty tiles; times of the whole
+                  calls and the bound; both entries and the sparse epilogue
+                  under torch.cuda.set_sync_debug_mode("error"), and the
+                  synchronizing ops left in one fused step and one lmm step
   scan            the fused path: ``gwas scan --engine fused`` through
                   Study.from_arrays(PlinkBed) -> plan -> ScanSession ->
                   TsvWriter on a synthetic cohort at the paper workload's
                   width (N=23,000 samples, P=2,048 traits, 12 covariates),
-                  depth cut to 8,192 markers (2 batches x 2 trait blocks)
+                  depth cut to 8,192 markers (2 batches x 2 trait blocks);
+                  one gwas_dot and one t-mode compaction launch per cell
   cross           the same cohort on the dense engine (a torch.matmul GEMM):
                   same hits outside a +/-0.05 band, values within the fused
                   oracle tolerances, lambda_gc within 1e-3
@@ -34,7 +41,8 @@ Phases, each printing one JSON line:
                   --lmm-epilogue fused`` on a structured cohort at the same
                   width (N=23,000, P=2,048, 12 covariates, M=8,192), delta
                   pinned at (1-h2)/h2; streamed GRM, eigendecomposition and
-                  rotation times; every planted effect must be a hit
+                  rotation times; one screen launch per cell; every planted
+                  effect must be a hit
   lmm_identities  N=4,096, M=2,048 in 2 PLINK shards, P=512, REML and LOCO:
                   fused sparse == fused dense-audit (the tstat kernel),
                   blocked == unblocked, packed == dense staging, bitwise; the
@@ -114,6 +122,12 @@ LMM_IDENT = dict(n_samples=4096, n_markers=2048, n_shards=2, n_traits=512,
 LMM_EPILOGUE_TOL = (0.0, (0.0, 1e-4), (0.0, 1e-3))
 TSTAT_SHAPES = (("cell", (4096, 1024)), ("ragged", (1000, 300)))
 TSTAT_CAPACITY = 4096
+# elements per tile of the compaction kernel (csrc/tstat.cu); one 8-byte
+# status word per tile
+COMPACT_TILE = 4096
+# the synchronizing-op census: the lmm step's sample count (its rotation is
+# N x N; the epilogue's ops do not depend on N)
+SYNC_LMM_SAMPLES = 4096
 T_RTOL = 2e-6
 
 
@@ -146,6 +160,28 @@ def cuda_ms(fn, reps: int = 3, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, inner: int = 20, reps: int = 3):
+    """The card's time per call of ``fn``: ``inner`` calls captured in one
+    CUDA graph on a side stream (after a warm-up there: the compaction keeps
+    its workspace per stream), the graph replayed (``cuda_ms``).  A replay
+    skips the host's work per call, which sets the rate of back-to-back
+    calls for these small kernels.  Returns (ms, the last captured call's
+    output after the timed replays)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(inner):
+            out = fn()
+    ms = cuda_ms(graph.replay, reps=reps) / inner
+    torch.cuda.synchronize()
+    return ms, out
+
+
 def bytes_bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -158,6 +194,7 @@ def reset_launches() -> None:
     gd.launches = 0
     ts.tstat_launches = 0
     ts.screen_launches = 0
+    ts.compact_launches = 0
 
 
 def read_launches() -> dict:
@@ -165,7 +202,7 @@ def read_launches() -> dict:
     from repro_torch.kernels.gwas_dot import gwas_dot as gd
 
     return {"gwas_dot": gd.launches, "tstat": ts.tstat_launches,
-            "screen_compact": ts.screen_launches}
+            "screen_compact": ts.screen_launches, "compact_survivors": ts.compact_launches}
 
 
 def gwas_dot_bound(m: int, n: int, p: int, packed_bytes: int, dtype: str) -> tuple[float, str]:
@@ -520,7 +557,11 @@ def phase_scan(tmp: str):
     study = Study.from_arrays(PlinkBed(bed), cohort.phenotypes, cohort.covariates)
     grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
     col, summary, timing = _run(study, os.path.join(tmp, "fused"), engine="fused", grid=grid)
-    check(timing["launches"]["gwas_dot"] > 0, "the scan never launched the gwas_dot kernel")
+    cells = timing["grid"][0] * timing["grid"][1]
+    for name in ("gwas_dot", "compact_survivors"):
+        check(timing["launches"][name] == cells,
+              f"the fused scan launched {name} {timing['launches'][name]} times, "
+              f"not once per cell ({cells})")
     hits, stats = col.hits()
     check(bool(np.isfinite(stats).all()), "non-finite hit statistics")
     found = {tuple(h) for h in hits.tolist()}
@@ -565,6 +606,9 @@ def phase_identities(tmp: str, cohort) -> None:
     for name, kw in runs.items():
         col, _, timing = _run(study, None, engine="fused", **kw)
         check(timing["launches"]["gwas_dot"] > 0, f"identities/{name}: kernel not launched")
+        check((timing["launches"]["compact_survivors"] > 0) == (name != "dense_epilogue"),
+              f"identities/{name}: compact_survivors launched "
+              f"{timing['launches']['compact_survivors']} times")
         canon[name] = col.canonical()
     result = _bitwise(canon, "sparse", ("dense_epilogue", "blocked", "dense_staging"))
     emit({"phase": "identities", "markers": m, "hits": int(len(canon["sparse"]["hits"])),
@@ -603,11 +647,134 @@ def _tstat_inputs(m: int, p: int, dof: float, seed: int):
     return torch.from_numpy(r).to(DEVICE)
 
 
+def _hold_compaction(label: str, r, dof: float, t2: float, capacity: int) -> dict:
+    """Both entries of the screen kernel against their plain versions on the
+    same inputs: t bitwise equal to the tstat kernel's, idx and count
+    exactly equal, in r mode against the whole plain version and in t mode
+    against the plain compaction of the same t."""
+    import torch
+
+    from repro_torch.kernels import tstat as ts
+
+    t, idx, cnt = ts.screen_compact(r, dof, t2, capacity)
+    _, idx0, cnt0 = ts.screen_compact_plain(r, dof, t2, capacity)
+    idx_t, cnt_t = ts.compact_survivors(t, t2, capacity)
+    idx_t0, cnt_t0 = ts.compact_survivors_plain(t, t2, capacity)
+    torch.cuda.synchronize()
+    check(torch.equal(t.view(torch.int32), ts.tstat(r, dof).view(torch.int32)),
+          f"screen {label}: t differs from the tstat kernel's bit for bit")
+    check(torch.equal(idx, idx0) and int(cnt) == int(cnt0),
+          f"screen {label}: idx/count differ from the plain version ({int(cnt)} vs {int(cnt0)})")
+    check(torch.equal(idx_t, idx_t0) and int(cnt_t) == int(cnt_t0),
+          f"compact_survivors {label}: idx/count differ from the plain version "
+          f"({int(cnt_t)} vs {int(cnt_t0)})")
+    check(torch.equal(idx_t, idx) and int(cnt_t) == int(cnt),
+          f"{label}: the two entries disagree on the same t")
+    idx_err = max([0] + [int((a - b).abs().max()) for a, b in ((idx, idx0), (idx_t, idx_t0))
+                         if a.numel()])
+    return {"survivors": int(cnt), "capacity": capacity, "idx_max_abs_err": idx_err}
+
+
+def _syncs_in(fn) -> dict:
+    """Run ``fn`` once under torch.cuda.set_sync_debug_mode("warn"): each
+    synchronizing op's innermost line in this repo's ``src/``, with its
+    count."""
+    import traceback
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    src = os.path.join(HERE, "src") + os.sep
+    found: Counter = Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack() if f.filename.startswith(src)]
+        where = ours[-1] if ours else None
+        found[f"{os.path.relpath(where.filename, HERE)}:{where.lineno}" if where
+              else f"{filename}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return dict(sorted(found.items()))
+
+
+def _sync_census(dof: float, t2: float) -> dict:
+    """The compaction's entries and the sparse epilogue under sync-debug
+    "error" (none may wait for the host), then the synchronizing ops left
+    in one fused step at the scan cell and one lmm step (prolog + cell,
+    then the cell alone), both with the sparse epilogue."""
+    import torch
+
+    from repro_torch.core.association import AssocOptions, SparseEpilogue, sparse_epilogue_outputs
+    from repro_torch.core.engines import build_fused_step, build_lmm_step
+    from repro_torch.kernels import tstat as ts
+
+    r = _tstat_inputs(4096, 1024, dof, seed=99)
+    t = ts.tstat(r, dof)
+    plan = SparseEpilogue(7.301, t2, TSTAT_CAPACITY)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts.screen_compact(r, dof, t2, TSTAT_CAPACITY)
+        ts.compact_survivors(t, t2, TSTAT_CAPACITY)
+        sparse_epilogue_outputs(r, t, dof, plan)
+        # the control: the plain compaction's torch.nonzero must raise here
+        try:
+            ts.compact_survivors_plain(t, t2, TSTAT_CAPACITY)
+            control_raised = False
+        except RuntimeError:
+            control_raised = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(control_raised, "sync-debug 'error' mode let torch.nonzero through")
+    control = _syncs_in(lambda: ts.compact_survivors_plain(t, t2, TSTAT_CAPACITY))
+    check(bool(control), "the census found no synchronizing op in torch.nonzero")
+    del r, t
+
+    m, n, p = KERNEL_SHAPES[0][1]
+    packed, mean, inv_std, y = _kernel_inputs(m, n, p, 512, seed=7)
+    valid = torch.ones(m, dtype=torch.bool, device=DEVICE)
+    fused = build_fused_step(n_samples=n, n_covariates=SCAN["n_covariates"],
+                             options=AssocOptions(), sparse_epilogue=True)
+    args = (packed, mean.reshape(-1, 1), inv_std.reshape(-1, 1), valid, y)
+    fused(*args)                       # builds and warms up outside the census
+    steps = {"fused_step": _syncs_in(lambda: fused(*args))}
+    del packed, mean, inv_std, y, args
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    nl = SYNC_LMM_SAMPLES
+    g_raw = torch.randint(0, 3, (m, nl), generator=gen, device=DEVICE).to(torch.float32)
+    rotation = torch.eye(nl, device=DEVICE)
+    qhat = torch.linalg.qr(torch.randn(nl, SCAN["n_covariates"] + 1, generator=gen,
+                                       device=DEVICE))[0]
+    y_std = torch.randn(nl, p, generator=gen, device=DEVICE)
+    lmm = build_lmm_step(n_samples=nl, n_covariates=SCAN["n_covariates"],
+                         options=AssocOptions(), epilogue="fused", sparse_epilogue=True)
+    lmm(g_raw.clone(), rotation, qhat, y_std)   # warm-up on another staged tensor
+    steps["lmm_step"] = _syncs_in(lambda: lmm(g_raw, rotation, qhat, y_std))
+    steps["lmm_cell"] = _syncs_in(lambda: lmm(g_raw, rotation, qhat, y_std))
+    return {"error_mode": ["screen_compact", "compact_survivors", "sparse_epilogue_outputs"],
+            "synchronizing_ops": {"control_compact_survivors_plain": control, **steps}}
+
+
 def phase_kernel_tstat() -> dict:
-    """Kernels 2 and 3 against their plain versions: t at rtol 2e-6, the mask
-    wherever the two t tiles agree, the compacted indices and the count
-    exactly.  Times are per call, 20 calls back to back (r stays in L2, as
-    it does after the correlation GEMM that produces it)."""
+    """Kernel 2 and both entries of kernel 3 against their plain versions:
+    t at rtol 2e-6 (and bitwise between tstat and the screen), the
+    compacted indices and the count exactly.  ``ms`` is per call of the
+    whole wrapper, 20 calls back to back (r stays in L2, as it does after
+    the correlation GEMM that produces it); ``device_ms`` the same 20 calls
+    replayed from a CUDA graph, without the host's work per call."""
     import torch
 
     from repro_torch.core.stats import t2_screen_threshold
@@ -621,47 +788,65 @@ def phase_kernel_tstat() -> dict:
         n = m * p
         t = ts.tstat(r, dof)
         t0 = ts.tstat_plain(r, dof)
-        ts_, mask, counts = ts.screen_tile(r, dof, t2)
-        ts0, mask0, count0 = ts.screen_tile_plain(r, dof, t2)
-        idx, cnt = ts.screen_compact(r, dof, t2, TSTAT_CAPACITY)[1:]
-        idx0, cnt0 = ts.screen_compact_plain(r, dof, t2, TSTAT_CAPACITY)[1:]
         torch.cuda.synchronize()
         check(bool(torch.isfinite(t).all()), f"tstat {label}: non-finite t")
-        for name, a, b in (("tstat", t, t0), ("screen", ts_, ts0)):
-            excess = (a - b).abs() - T_RTOL * b.abs()
-            check(float(excess.max()) <= 0.0, f"{name} {label}: t past rtol {T_RTOL}")
-        check(torch.equal(t, ts_), f"{label}: tstat and screen t tiles differ")
-        agree = ts_ == ts0
-        check(torch.equal(mask[agree], mask0[agree]), f"screen {label}: mask differs")
-        check(int(counts.sum()) == int(count0[0]) == int(cnt) == int(cnt0),
-              f"screen {label}: counts {int(counts.sum())} vs {int(count0[0])}")
-        check(torch.equal(idx, idx0), f"screen {label}: compacted indices differ")
-        check(int(cnt) > TSTAT_CAPACITY or label != "cell",
-              f"screen {label}: {int(cnt)} survivors do not overflow the buffer")
-        n_blocks = counts.numel()
-        for name, kernel, plain, nbytes in (
-            ("tstat", lambda: ts.tstat(r, dof), lambda: ts.tstat_plain(r, dof), 8 * n),
-            ("screen_compact", lambda: ts.screen_tile(r, dof, t2),
-             lambda: ts.screen_tile_plain(r, dof, t2), 9 * n + 4 * n_blocks),
+        excess = (t - t0).abs() - T_RTOL * t0.abs()
+        check(float(excess.max()) <= 0.0, f"tstat {label}: t past rtol {T_RTOL}")
+        held = _hold_compaction(label, r, dof, t2, TSTAT_CAPACITY)
+        check(held["survivors"] > TSTAT_CAPACITY or label != "cell",
+              f"screen {label}: {held['survivors']} survivors do not overflow the buffer")
+        tiles = -(-n // COMPACT_TILE)
+        slots = 4 * TSTAT_CAPACITY + 8 * tiles
+        # flops per element: t ~6 (mul, sub, max, div, rsqrt, mul), the
+        # screen 2 more (square, compare)
+        for name, kernel, plain, nbytes, flops in (
+            ("tstat", lambda: ts.tstat(r, dof), lambda: ts.tstat_plain(r, dof), 8 * n, 6 * n),
+            ("screen_compact", lambda: ts.screen_compact(r, dof, t2, TSTAT_CAPACITY),
+             lambda: ts.screen_compact_plain(r, dof, t2, TSTAT_CAPACITY), 8 * n + slots, 8 * n),
+            ("compact_survivors", lambda: ts.compact_survivors(t, t2, TSTAT_CAPACITY),
+             lambda: ts.compact_survivors_plain(t, t2, TSTAT_CAPACITY), 4 * n + slots, 2 * n),
         ):
-            # ~6 flops per element (mul, sub, max, div, rsqrt, mul)
-            bound_ms, bound_by = bytes_bound(nbytes, 6.0 * n)
+            bound_ms, bound_by = bytes_bound(nbytes, float(flops))
+            device_ms, replayed = graph_ms(kernel)
+            # the graph's replays wrote the same results as the calls above
+            if name == "tstat":
+                check(torch.equal(replayed, t), f"tstat {label}: the replayed t differs")
+            else:
+                want = plain()[-2:]
+                check(torch.equal(replayed[-2], want[0]) and int(replayed[-1]) == int(want[1]),
+                      f"{name} {label}: the replayed idx/count differ from the plain version")
             row = {
                 "kernel": name, "shape": label, "m": m, "p": p,
-                "max_abs_err": float(((t if name == "tstat" else ts_) - t0).abs().max()),
+                "max_abs_err": (float((t - t0).abs().max()) if name != "compact_survivors"
+                                else float(held["idx_max_abs_err"])),
                 "ms": cuda_ms(kernel, inner=20), "plain_ms": cuda_ms(plain, inner=20),
+                "device_ms": device_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                 "library_ms": None,
             }
-            if name == "screen_compact":
-                row["survivors"] = int(cnt)
-                row["wrapper_ms"] = cuda_ms(
-                    lambda: ts.screen_compact(r, dof, t2, TSTAT_CAPACITY), inner=20)
+            if name != "tstat":
+                row.update(held)
             row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
             emit({"phase": "kernel_tstat", **row})
             if label == "cell":
                 rows[name] = row
-        del r, t, t0, ts_, ts0, mask, mask0
+        del r, t, t0
+    # the compaction's edges: no survivors, all survivors (overflow), NaN r
+    # with a capacity above the tile's size, and an empty tile
+    m, p = TSTAT_SHAPES[1][1]
+    nan_r = _tstat_inputs(37, 53, dof, seed=5)
+    nan_r.view(-1)[::7] = float("nan")
+    edges = {
+        "none": torch.zeros((m, p), device=DEVICE),
+        "all": torch.full((m, p), 0.5, device=DEVICE),
+        "nan_above_capacity": nan_r,
+        "empty": torch.zeros((0, p), device=DEVICE),
+    }
+    held = {k: _hold_compaction(k, r, dof, t2, TSTAT_CAPACITY) for k, r in edges.items()}
+    check(held["none"]["survivors"] == 0 and held["all"]["survivors"] == m * p
+          and held["empty"]["survivors"] == 0, f"edge survivor counts {held}")
+    emit({"phase": "kernel_tstat", "edges": held, **_sync_census(dof, t2)})
     return rows
 
 
@@ -693,6 +878,8 @@ def phase_lmm_scan(tmp: str) -> dict:
     check(timing["launches"]["screen_compact"] == cells,
           f"the lmm scan launched the screen kernel {timing['launches']['screen_compact']} "
           f"times, not once per cell ({cells})")
+    check(timing["launches"]["compact_survivors"] == 0,
+          "the lmm scan compacted outside the screen kernel")
     hits, stats = col.hits()
     check(bool(np.isfinite(stats).all()), "non-finite hit statistics")
     planted = {(m, t) for m, t, _ in cohort.effects}
@@ -872,10 +1059,13 @@ def main(argv: list[str]) -> int:
         "library_ms": main_row["library_ms"],
     }]
     # tstat runs on the fused epilogue's dense-audit path, the screen on the
-    # mixed-model scan's default (sparse) path
+    # mixed-model scan's default (sparse) path, its t mode on the fused OLS
+    # scan's sparse epilogue
     for name, replaces, launches in (
         ("screen_compact", "src/repro/kernels/tstat.py:65",
          lmm_timing["launches"]["screen_compact"]),
+        ("compact_survivors", "src/repro/kernels/tstat.py:65",
+         timing["launches"]["compact_survivors"]),
         ("tstat", "src/repro/kernels/tstat.py:19", audit_launches["tstat"]),
     ):
         row = tstat_rows[name]

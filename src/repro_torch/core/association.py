@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import stats as _stats
+from repro_torch.kernels import tstat as _tstat
 
 __all__ = [
     "AssocOptions",
@@ -248,18 +249,20 @@ def sparse_epilogue_outputs(
 
     ``screen`` optionally supplies ``(hit_idx, screen_count)`` from the fused
     screen kernel (``kernels.tstat.screen_compact``) in place of the
-    compaction here; the layout of the result is the same either way.
+    compaction here (``kernels.tstat.compact_survivors``); the layout of the
+    result is the same either way.
     """
     del dof  # the refine is host-side; kept for call-site symmetry
     t2 = t * t
     best_row = torch.argmax(t2, dim=0).to(torch.int32)
     best_t = torch.gather(t, 0, best_row[None, :].to(torch.int64))[0]
     if screen is None:
-        keep = t2.reshape(-1) >= plan.t2_screen
-        screen_count = torch.sum(keep).to(torch.int32)
-        found = torch.nonzero(keep).reshape(-1)[: plan.capacity].to(torch.int32)
-        idx = torch.full((plan.capacity,), -1, dtype=torch.int32, device=t.device)
-        idx[: found.shape[0]] = found
+        # On a card the compaction is the screen kernel's t mode, one launch
+        # with no wait for the host; torch.nonzero would wait for the count.
+        if t.device.type == "cuda":
+            idx, screen_count = _tstat.compact_survivors(t, plan.t2_screen, plan.capacity)
+        else:
+            idx, screen_count = _tstat.compact_survivors_plain(t, plan.t2_screen, plan.capacity)
     else:
         idx, screen_count = screen
     slot = idx >= 0

@@ -1,39 +1,62 @@
-// Elementwise t statistic and the fused t^2 survivor screen for Hopper (sm_90a).
+// Elementwise t statistic and the t^2 survivor screen with in-kernel ordered
+// compaction, for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of src/repro/kernels/tstat.py:
 //   `_tstat_kernel`  (reached through `tstat`)          -> tstat_kernel
-//   `_screen_kernel` (reached through `screen_compact`) -> screen_kernel
-// Both serve the mixed-model engine's fused epilogue
-// (`core/engines.py::build_lmm_step`, `--lmm-epilogue fused`).
+//   `_screen_kernel` (reached through `screen_compact`) -> compact_kernel<false>
+// and, as compact_kernel<true>, the XLA `nonzero` compaction of the fused
+// OLS path's sparse epilogue (src/repro/core/association.py:339-355).
 //
-// What they compute, over the flat row-major (M * P) correlation tile r:
+// What they compute, over the flat row-major tile of n = M * P elements:
 //   t     = clip(r, -1, 1) * rsqrt(max(1 - r^2, eps) / dof)
-//   mask  = t^2 >= t2_screen                      (screen_kernel only, int8)
-//   count = survivors per CUDA block             (screen_kernel only, int32)
-// `dof`, `eps` and `t2_screen` are runtime arguments.  The t of both kernels
-// comes from one device function, so the two t tiles are bitwise identical
-// (the reference's own contract: the sparse epilogue's t equals the dense
-// fused path's).  The arithmetic is written with explicit rounding
-// (__fmul_rn, __fsub_rn, __fdiv_rn): nvcc's default -fmad=true would
-// otherwise contract 1 - r*r into an FMA.  The screen squares t with
-// __fmul_rn too, so the mask is the same IEEE compare as the host's plain
-// float32 `t * t >= t2_screen` over the pulled t tile (the sparse
-// epilogue's overflow fallback).
+//   keep  = t^2 >= t2_screen
+//   idx   = ascending flat indices of the first `capacity` survivors, -1 padded
+//   count = the exact number of survivors (also when it exceeds `capacity`)
+// tstat_kernel emits t; compact_kernel<false> ("r mode") emits t, idx and
+// count; compact_kernel<true> ("t mode") takes t in place of r and emits idx
+// and count only.  `dof`, `eps` and `t2_screen` are runtime arguments.  The t
+// of both r-taking kernels comes from one device function, so the two t
+// tiles are bitwise identical (the reference's own contract: the sparse
+// epilogue's t equals the dense fused path's).  The arithmetic is written
+// with explicit rounding (__fmul_rn, __fsub_rn, __fdiv_rn): nvcc's default
+// -fmad=true would otherwise contract 1 - r*r into an FMA.  The screen
+// squares t with __fmul_rn too, so keep is the same IEEE compare as the
+// host's plain float32 `t * t >= t2_screen` (NaN never survives).
 //
 // Bound on an H100 SXM: bytes.  tstat reads r and writes t (8 bytes per
-// element); screen also writes the int8 mask (9 bytes per element) plus one
-// int32 per block.  At a (4096, 1024) cell that is 33.5 MB and 37.7 MB,
-// 0.010 ms and 0.011 ms at 3.35 TB/s; a handful of flops per element is far
-// below the card's rate.  At these sizes the launch itself costs about as
-// much as the bound.
+// element).  The compaction reads r and writes t in r mode (8 bytes per
+// element), reads t in t mode (4), and in both writes idx (4 per slot) and
+// one 8-byte status word per tile.  At a (4096, 1024) cell with capacity
+// 4,096 that is 33.6 MB (r mode) and 16.8 MB (t mode): 0.0100 ms and
+// 0.0050 ms at 3.35 TB/s.  A handful of flops per element is far below the
+// card's rate; at these sizes a launch costs about as much as the bound.
 //
-// Design (first version: simple and right).  One thread per element, 256
-// threads per block, bounds-checked in place of the reference's zero
-// padding to (block_m, block_p) tiles.  The screen counts its survivors
-// with one warp ballot + __popc per warp and a shared-memory sum across the
-// block's 8 warps; the caller sums the per-block counts.  Compaction of the
-// survivor indices stays in the wrapper (torch.nonzero, row-major order);
-// an ordered in-kernel scatter is later work.
+// Design of the compaction: one pass, a decoupled look-back (Merrill and
+// Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
+// 2016), so the survivor count never travels to the host.
+//   * A tile is 4,096 elements: 256 threads, each loading four float4 at
+//     element tile * 4096 + k * 1024 + 4 * thread + j (k, j < 4).  Every warp
+//     load touches 512 contiguous bytes.  Survivor order within a tile is
+//     (k, thread, j), i.e. ascending index.
+//   * Each thread counts its survivors of each chunk k into one 16-bit lane
+//     of a 64-bit word; one warp scan (__shfl_up_sync) and a scan over the 8
+//     warp totals in shared memory rank all four chunks at once (a lane's
+//     total is at most 1,024, so lanes never carry into each other).
+//   * A tile takes its id from an atomicAdd on a counter, not from blockIdx:
+//     every lower id belongs to a block already running, which guarantees
+//     the look-back forward progress.
+//   * The prefix across tiles: each tile posts its aggregate in a 64-bit
+//     status word (epoch | state | count), then warp 0 reads 32 predecessors
+//     at a time, waits until all have posted, and sums back to the nearest
+//     inclusive prefix; it then posts its own inclusive prefix.
+//   * A survivor writes its index at prefix + rank when that is below
+//     capacity.  The tile with the highest id holds the total: it writes
+//     count and fills [min(total, capacity), capacity) with -1.
+//   * Workspace: word 0 is the tile counter, words 1.. the status words.
+//     The last tile sets the counter back to 0; a status word from an
+//     earlier launch carries another epoch and reads as not yet posted, so
+//     the workspace needs no reset between launches on one stream.
+//   * Every sum is an integer, so the output does not depend on the schedule.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,6 +65,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // clip, then t.  The compares keep a NaN r NaN (as the reference's clip and
 // maximum do); fminf/fmaxf would turn it into a bound.
@@ -59,59 +83,231 @@ tstat_kernel(const float* __restrict__ r, float* __restrict__ t, long long n,
   if (i < n) t[i] = t_from_r(r[i], dof, eps);
 }
 
-__global__ void __launch_bounds__(THREADS)
-screen_kernel(const float* __restrict__ r, float* __restrict__ t,
-              int8_t* __restrict__ mask, int* __restrict__ counts, long long n,
-              float dof, float t2_screen, float eps) {
-  __shared__ int warp_counts[WARPS];
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  bool keep = false;
-  if (i < n) {
-    const float tv = t_from_r(r[i], dof, eps);
-    t[i] = tv;
-    keep = __fmul_rn(tv, tv) >= t2_screen;
-    mask[i] = keep ? 1 : 0;
-  }
-  // Every thread of the block reaches the ballot (no early return).
-  const unsigned votes = __ballot_sync(0xffffffffu, keep);
-  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = __popc(votes);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) total += warp_counts[w];
-    counts[blockIdx.x] = total;
-  }
-}
-
 inline unsigned grid_for(long long n) {
   return static_cast<unsigned>((n + THREADS - 1) / THREADS);
 }
 
-}  // namespace
+// ------------------------------------------------------------- compaction
 
-// Plain C entry points (loaded with ctypes).  Each launches on `stream` and
-// returns the cudaError_t of the launch (0 on success); none synchronizes.
+constexpr int CHUNKS = 4;                  // float4 loads per thread
+constexpr int CHUNK = THREADS * 4;         // 1,024 elements
+constexpr int TILE = CHUNKS * CHUNK;       // 4,096 elements
+constexpr unsigned STATE_AGGREGATE = 1u;   // count = this tile's survivors
+constexpr unsigned STATE_PREFIX = 2u;      // count = survivors up to and with this tile
 
-// Threads per block, hence elements per entry of screen_launch's `counts`.
-extern "C" int tstat_block_threads() { return THREADS; }
-
-extern "C" int tstat_launch(const void* r, void* t, long long n, float dof,
-                            float eps, void* stream) {
-  if (n <= 0) return 0;
-  tstat_kernel<<<grid_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(r), static_cast<float*>(t), n, dof, eps);
-  return static_cast<int>(cudaGetLastError());
+// A status word: epoch in bits 34..63, state in bits 32..33, count below.
+__device__ __forceinline__ unsigned long long status_word(unsigned epoch, unsigned state,
+                                                          unsigned count) {
+  return (static_cast<unsigned long long>(epoch) << 34) |
+         (static_cast<unsigned long long>(state) << 32) | count;
 }
 
-// `counts` holds ceil(n / tstat_block_threads()) int32 entries.
-extern "C" int screen_launch(const void* r, void* t, void* mask, void* counts,
-                             long long n, float dof, float t2_screen, float eps,
-                             void* stream) {
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+template <bool FROM_T>
+__global__ void __launch_bounds__(THREADS)
+compact_kernel(const float* __restrict__ src, float* __restrict__ t_out,
+               int* __restrict__ idx, int* __restrict__ count,
+               unsigned long long* work, long long n, long long capacity,
+               unsigned epoch, float dof, float t2_screen, float eps) {
+  __shared__ unsigned long long warp_sums[WARPS];
+  __shared__ int tile_s;
+  __shared__ long long prefix_s;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  unsigned long long* status = work + 1;
+
+  if (tid == 0) tile_s = static_cast<int>(atomicAdd(reinterpret_cast<unsigned*>(work), 1u));
+  __syncthreads();
+  const int tile = tile_s;
+  // this thread's element of chunk k, lane j: first + k * CHUNK + j
+  const long long first = static_cast<long long>(tile) * TILE + 4 * tid;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(t_out)) & 15) == 0;
+  const bool full = aligned && (static_cast<long long>(tile) + 1) * TILE <= n;
+
+  float v[CHUNKS][4];
+  if (full) {
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) {
+      const float4 x = *reinterpret_cast<const float4*>(src + first + k * CHUNK);
+      v[k][0] = x.x; v[k][1] = x.y; v[k][2] = x.z; v[k][3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long e = first + k * CHUNK + j;
+        v[k][j] = (e < n) ? src[e] : 0.f;
+      }
+  }
+
+  unsigned keep = 0;  // bit 4k + j: element first + k * CHUNK + j survives
+#pragma unroll
+  for (int k = 0; k < CHUNKS; ++k) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!FROM_T) v[k][j] = t_from_r(v[k][j], dof, eps);
+      const bool in = full || first + k * CHUNK + j < n;
+      if (in && __fmul_rn(v[k][j], v[k][j]) >= t2_screen) keep |= 1u << (4 * k + j);
+    }
+    if (!FROM_T) {
+      float* out = t_out + first + k * CHUNK;
+      if (full) {
+        *reinterpret_cast<float4*>(out) = make_float4(v[k][0], v[k][1], v[k][2], v[k][3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (first + k * CHUNK + j < n) out[j] = v[k][j];
+      }
+    }
+  }
+
+  // Rank the survivors of all four chunks in one scan: chunk k's count in
+  // bits 16k..16k+15.
+  unsigned long long mine = 0;
+#pragma unroll
+  for (int k = 0; k < CHUNKS; ++k)
+    mine |= static_cast<unsigned long long>(__popc((keep >> (4 * k)) & 0xFu)) << (16 * k);
+  unsigned long long incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned long long up = __shfl_up_sync(FULL_MASK, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  unsigned long long before = 0, tile_sum = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const unsigned long long s = warp_sums[w];
+    if (w < warp) before += s;
+    tile_sum += s;
+  }
+  const unsigned long long excl = before + incl - mine;
+  unsigned chunk_base[CHUNKS];
+  unsigned agg = 0;  // this tile's survivors
+#pragma unroll
+  for (int k = 0; k < CHUNKS; ++k) {
+    chunk_base[k] = agg;
+    agg += static_cast<unsigned>(tile_sum >> (16 * k)) & 0xFFFFu;
+  }
+
+  // The survivors of all earlier tiles: decoupled look-back by warp 0.
+  if (warp == 0) {
+    unsigned prefix = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(status, status_word(epoch, STATE_PREFIX, agg));
+    } else {
+      if (lane == 0) store_status(status + tile, status_word(epoch, STATE_AGGREGATE, agg));
+      for (int top = tile - 1;; top -= 32) {
+        const int p = top - lane;  // lane 0 reads the nearest predecessor
+        unsigned state, cnt;
+        do {
+          state = STATE_PREFIX;  // before tile 0: an inclusive prefix of 0
+          cnt = 0;
+          if (p >= 0) {
+            const unsigned long long s = load_status(status + p);
+            state = (static_cast<unsigned>(s >> 34) == epoch)
+                        ? static_cast<unsigned>(s >> 32) & 3u : 0u;
+            cnt = static_cast<unsigned>(s);
+          }
+        } while (!__all_sync(FULL_MASK, state != 0u));
+        const unsigned prefixes = __ballot_sync(FULL_MASK, state == STATE_PREFIX);
+        const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+        prefix += __reduce_add_sync(FULL_MASK, lane <= stop ? cnt : 0u);
+        if (prefixes) break;
+      }
+      if (lane == 0) store_status(status + tile, status_word(epoch, STATE_PREFIX, prefix + agg));
+    }
+    if (lane == 0) prefix_s = prefix;
+  }
+  __syncthreads();
+  const long long prefix = prefix_s;
+
+  if (keep != 0 && prefix < capacity) {
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) {
+      long long pos = prefix + chunk_base[k] + ((excl >> (16 * k)) & 0xFFFFull);
+      for (unsigned bits = (keep >> (4 * k)) & 0xFu; bits != 0; bits &= bits - 1, ++pos)
+        if (pos < capacity) idx[pos] = static_cast<int>(first + k * CHUNK + __ffs(bits) - 1);
+    }
+  }
+  if (tile == static_cast<int>(gridDim.x) - 1) {
+    const long long total = prefix + agg;
+    if (tid == 0) {
+      *count = static_cast<int>(total);
+      // every block has taken its id: ready the counter for the next launch
+      atomicExch(reinterpret_cast<unsigned*>(work), 0u);
+    }
+    for (long long i = (total < capacity ? total : capacity) + tid; i < capacity; i += THREADS)
+      idx[i] = -1;
+  }
+}
+
+// Tiles for n elements; n == 0 still takes one tile, which writes count and
+// the -1 fill.
+inline unsigned tiles_for(long long n) {
+  return n <= 0 ? 1u : static_cast<unsigned>((n + TILE - 1) / TILE);
+}
+
+// Runs `launch` with `device` current on the calling thread, then restores
+// the thread's device; returns the launch's cudaError_t.  Doing the switch
+// here spares the Python wrapper a device guard on every call.
+template <class Launch>
+int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch();
+  err = cudaGetLastError();
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Each launches on `stream` of
+// `device` and returns the cudaError_t of the launch (0 on success); none
+// synchronizes.
+
+// Elements per tile of the compaction: the workspace holds one 8-byte word
+// for the tile counter and one status word per tile.
+extern "C" int compact_tile_elems() { return TILE; }
+
+extern "C" int tstat_launch(const void* r, void* t, long long n, float dof,
+                            float eps, int device, void* stream) {
   if (n <= 0) return 0;
-  screen_kernel<<<grid_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(r), static_cast<float*>(t),
-      static_cast<int8_t*>(mask), static_cast<int*>(counts), n, dof, t2_screen,
-      eps);
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    tstat_kernel<<<grid_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(r), static_cast<float*>(t), n, dof, eps);
+  });
+}
+
+// The compaction: idx[capacity] and count, from r (r mode, `from_t` 0,
+// which also writes t) or from an existing t (t mode, `from_t` 1; `t`, `dof`
+// and `eps` are not read).  `epoch` (1 .. 2^30 - 1) must differ from the
+// previous launch's on the same workspace.
+extern "C" int compact_launch(const void* src, void* t, void* idx, void* count, void* work,
+                              long long n, long long capacity, unsigned epoch, float dof,
+                              float t2_screen, float eps, int from_t, int device,
+                              void* stream) {
+  return on_device(device, [&] {
+    auto kernel = from_t ? compact_kernel<true> : compact_kernel<false>;
+    kernel<<<tiles_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(src), static_cast<float*>(t), static_cast<int*>(idx),
+        static_cast<int*>(count), static_cast<unsigned long long*>(work), n, capacity, epoch,
+        dof, t2_screen, eps);
+  });
 }

@@ -1,66 +1,102 @@
 """Wrappers around the hand-written Hopper t-statistic kernels
 (``kernels/csrc/tstat.cu``), the ports of the Pallas TPU kernels
 ``repro.kernels.tstat._tstat_kernel`` (``tstat``) and ``_screen_kernel``
-(``screen_compact``).
+(``screen_compact``), and the t mode of the screen (``compact_survivors``),
+which compacts the survivors of an existing t tile for the fused OLS path's
+sparse epilogue.
 
-Both wrappers check and allocate, then launch the CUDA kernel for tensors on
-a CUDA device, or run the plain PyTorch version (``tstat_plain``,
-``screen_compact_plain``) for tensors on the CPU.  There is no fallback: a
-CUDA tensor either launches the kernel or raises.  ``tstat_launches`` and
-``screen_launches`` count kernel launches (never the plain versions' runs).
+Each wrapper checks and allocates, then launches the CUDA kernel for tensors
+on a CUDA device, or runs the plain PyTorch version (``tstat_plain``,
+``screen_compact_plain``, ``compact_survivors_plain``) for tensors on the
+CPU.  There is no fallback: a CUDA tensor either launches the kernel or
+raises.  ``tstat_launches``, ``screen_launches`` and ``compact_launches``
+count kernel launches (never the plain versions' runs).
+
+The screen and its t mode compact inside the kernel (an ordered scatter
+behind a decoupled look-back), so neither reads a device value back to the
+host: the survivor count stays on the device.
 
 The kernels and the plain versions compute ``t = r * rsqrt(denom / dof)``
 (the kernels' formula), not ``stats.t_from_r``'s ``r * sqrt(dof / denom)``.
-``block_m``/``block_p`` are the reference's tile shape; the CUDA kernels are
-elementwise over the flat tile and take any shape, so they only validate
-them.
+``block_m``/``block_p`` are the reference's tile shape; the CUDA kernels
+work on the flat tile and take any shape, so they only validate them.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 __all__ = [
+    "compact_launches",
+    "compact_survivors",
+    "compact_survivors_plain",
     "screen_compact",
     "screen_compact_plain",
     "screen_launches",
-    "screen_tile",
-    "screen_tile_plain",
     "tstat",
     "tstat_launches",
     "tstat_plain",
 ]
 
-# Number of CUDA kernel launches so far, per kernel; reset by assignment.
+# Number of CUDA kernel launches so far, per entry; reset by assignment.
 tstat_launches = 0
 screen_launches = 0
+compact_launches = 0
+
+# Survivor indices are int32, as in the reference.
+_INDEX_LIMIT = 2**31
+# Epochs of the look-back's status words run 1 .. 2^30 - 1 (30 bits).
+_EPOCHS = 2**30 - 1
 
 _lib = None
-_threads = 0    # threads per CUDA block of the screen kernel, read at load
+_tile = 0       # elements per tile of the compaction kernel, read at load
+# (device index, stream) -> [int64 workspace, epoch of its last launch]
+_workspaces: dict[tuple[int, int], list] = {}
+_workspace_lock = threading.Lock()
 
 
 def _library():
-    global _lib, _threads
+    global _lib, _tile
     if _lib is None:
         from repro_torch.kernels.build import load
 
         lib = load("tstat")
-        lib.tstat_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.tstat_launch.restype = ctypes.c_int
-        lib.screen_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p,
-        ]
-        lib.screen_launch.restype = ctypes.c_int
-        lib.tstat_block_threads.restype = ctypes.c_int
-        _threads = lib.tstat_block_threads()
+        vp, ll, f32, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int
+        lib.tstat_launch.argtypes = [vp, vp, ll, f32, f32, i32, vp]
+        lib.compact_launch.argtypes = [vp, vp, vp, vp, vp, ll, ll, ctypes.c_uint,
+                                       f32, f32, f32, i32, i32, vp]
+        for fn in (lib.tstat_launch, lib.compact_launch, lib.compact_tile_elems):
+            fn.restype = ctypes.c_int
+        _tile = lib.compact_tile_elems()
         _lib = lib
     return _lib
+
+
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream.  The private call skips
+    building a ``torch.cuda.Stream`` object on every launch; the entry points
+    switch to ``device`` themselves, so no device guard is needed either."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _workspace(device: torch.device, stream: int, n: int) -> tuple[torch.Tensor, int]:
+    """The look-back's workspace on (device, stream) for ``n`` elements and a
+    fresh epoch for one launch; call under ``_workspace_lock``.  Word 0 is
+    the tile counter, which the kernel leaves at 0; words 1.. are the
+    per-tile status words, and a word of another epoch reads as not yet
+    posted, so the workspace is never reset.  One per stream: two streams'
+    launches would otherwise race on the counter.  A CUDA graph that
+    captures a launch keeps the capture stream's workspace, so replay it
+    while nothing else launches on that workspace."""
+    tiles = max(1, -(-n // _tile))
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < tiles + 1:
+        ws = _workspaces[key] = [torch.zeros(tiles + 1, dtype=torch.int64, device=device), 0]
+    ws[1] = ws[1] % _EPOCHS + 1
+    return ws[0], ws[1]
 
 
 def _check(r: torch.Tensor, block_m: int, block_p: int) -> None:
@@ -70,6 +106,14 @@ def _check(r: torch.Tensor, block_m: int, block_p: int) -> None:
         raise ValueError(f"block_m and block_p must be positive, got {block_m}, {block_p}")
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the tstat kernels run on cuda or cpu tensors, not {r.device.type}")
+
+
+def _check_screen(x: torch.Tensor, t2_screen: float, capacity: int) -> None:
+    if not float(t2_screen) > 0.0:
+        raise ValueError(f"t2_screen must be positive, got {t2_screen}")
+    if not 0 <= capacity < _INDEX_LIMIT or x.numel() >= _INDEX_LIMIT:
+        raise ValueError(f"int32 survivor indices: need 0 <= capacity and {x.numel()} "
+                         f"elements below 2^31, got capacity {capacity}")
 
 
 def _t_plain(r: torch.Tensor, dof: float, eps: float) -> torch.Tensor:
@@ -86,31 +130,47 @@ def tstat_plain(r: torch.Tensor, dof: float, *, eps: float = 1e-12) -> torch.Ten
     return _t_plain(r, dof, eps)
 
 
-def screen_tile_plain(
-    r: torch.Tensor, dof: float, t2_screen: float, *, eps: float = 1e-12
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of ``screen_tile`` (any device); the survivor
-    count comes as one total."""
-    t = _t_plain(r, dof, eps)
-    keep = t * t >= t2_screen
-    return t, keep.to(torch.int8), torch.sum(keep).to(torch.int32).reshape(1)
+def compact_survivors_plain(
+    t: torch.Tensor, t2_screen: float, capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``compact_survivors`` (any device).
+    ``torch.nonzero`` sizes its output by the data, so on a card it waits
+    for the device."""
+    keep = (t * t).reshape(-1) >= t2_screen
+    count = torch.sum(keep).to(torch.int32)
+    found = torch.nonzero(keep).reshape(-1)[:capacity].to(torch.int32)
+    idx = torch.full((capacity,), -1, dtype=torch.int32, device=t.device)
+    idx[: found.shape[0]] = found
+    return idx, count
 
 
 def screen_compact_plain(
     r: torch.Tensor, dof: float, t2_screen: float, capacity: int, *, eps: float = 1e-12
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``screen_compact`` (any device)."""
-    t, mask, count = screen_tile_plain(r, dof, t2_screen, eps=eps)
-    return t, _compact(mask.reshape(-1) != 0, capacity), count[0]
+    t = _t_plain(r, dof, eps)
+    return (t, *compact_survivors_plain(t, t2_screen, capacity))
 
 
-def _compact(keep: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Row-major flat indices of the survivors, the first ``capacity`` of
-    them, padded with -1 to ``capacity``."""
-    found = torch.nonzero(keep).reshape(-1)[:capacity].to(torch.int32)
-    idx = torch.full((capacity,), -1, dtype=torch.int32, device=keep.device)
-    idx[: found.shape[0]] = found
-    return idx
+def _compact(
+    src: torch.Tensor, t: torch.Tensor | None, t2_screen: float, capacity: int, dof: float,
+    eps: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the compaction kernel on ``src``'s device: r mode,
+    writing ``t`` too, or t mode when ``t`` is None.  Returns (idx, count)."""
+    idx = torch.empty((capacity,), dtype=torch.int32, device=src.device)
+    count = torch.empty((), dtype=torch.int32, device=src.device)
+    lib = _library()
+    stream = _stream(src.device)
+    with _workspace_lock:
+        work, epoch = _workspace(src.device, stream, src.numel())
+        err = lib.compact_launch(
+            src.data_ptr(), None if t is None else t.data_ptr(), idx.data_ptr(),
+            count.data_ptr(), work.data_ptr(), src.numel(), capacity, epoch, float(dof),
+            float(t2_screen), float(eps), int(t is None), src.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"compaction kernel launch failed: cudaError_t {err}")
+    return idx, count
 
 
 def tstat(
@@ -130,43 +190,12 @@ def tstat(
     r = r.contiguous()
     t = torch.empty_like(r)
     lib = _library()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.tstat_launch(r.data_ptr(), t.data_ptr(), r.numel(), float(dof),
-                               float(eps), stream)
+    err = lib.tstat_launch(r.data_ptr(), t.data_ptr(), r.numel(), float(dof), float(eps),
+                           r.device.index, _stream(r.device))
     if err != 0:
         raise RuntimeError(f"tstat kernel launch failed: cudaError_t {err}")
     tstat_launches += 1
     return t
-
-
-def screen_tile(
-    r: torch.Tensor, dof: float, t2_screen: float, *, eps: float = 1e-12
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The screen kernel alone: ``(t, mask, counts)`` — the ``(M, P)`` t
-    tile, the int8 survivor mask ``t^2 >= t2_screen``, and int32 survivor
-    counts, one per CUDA block of the flat tile (one total on the CPU)."""
-    global screen_launches
-    _check(r, 1, 1)
-    if r.device.type == "cpu":
-        return screen_tile_plain(r, dof, t2_screen, eps=eps)
-    r = r.contiguous()
-    n = r.numel()
-    lib = _library()
-    t = torch.empty_like(r)
-    mask = torch.empty(r.shape, dtype=torch.int8, device=r.device)
-    counts = torch.empty((max(1, -(-n // _threads)),), dtype=torch.int32, device=r.device)
-    if n == 0:
-        counts.zero_()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.screen_launch(r.data_ptr(), t.data_ptr(), mask.data_ptr(),
-                                counts.data_ptr(), n, float(dof), float(t2_screen),
-                                float(eps), stream)
-    if err != 0:
-        raise RuntimeError(f"screen kernel launch failed: cudaError_t {err}")
-    screen_launches += 1
-    return t, mask, counts
 
 
 def screen_compact(
@@ -179,18 +208,40 @@ def screen_compact(
     block_p: int = 256,
     eps: float = 1e-12,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused t statistic + ``t^2 >= t2_screen`` survivor screen.
+    """Fused t statistic + ``t^2 >= t2_screen`` survivor screen, one kernel
+    launch on a card.
 
     Returns ``(t, hit_idx, screen_count)``: the ``(M, P)`` t tile, the
     row-major flat indices of the first ``capacity`` survivors (ascending,
     padded with -1), and the exact survivor total as an int32 scalar
     (trustworthy past ``capacity``).  ``t2_screen`` must be positive: lanes
-    with ``r = 0`` give ``t = 0`` and must never survive.  The compaction
-    runs here, after the kernel (``torch.nonzero`` keeps row-major order).
+    with ``r = 0`` give ``t = 0`` and must never survive.
     """
+    global screen_launches
     _check(r, block_m, block_p)
-    if not float(t2_screen) > 0.0:
-        raise ValueError(f"t2_screen must be positive, got {t2_screen}")
-    t, mask, counts = screen_tile(r, dof, t2_screen, eps=eps)
-    idx = _compact(mask.reshape(-1) != 0, int(capacity))
-    return t, idx, torch.sum(counts).to(torch.int32)
+    capacity = int(capacity)
+    _check_screen(r, t2_screen, capacity)
+    if r.device.type == "cpu":
+        return screen_compact_plain(r, dof, t2_screen, capacity, eps=eps)
+    r = r.contiguous()
+    t = torch.empty_like(r)
+    idx, count = _compact(r, t, t2_screen, capacity, dof, eps)
+    screen_launches += 1
+    return t, idx, count
+
+
+def compact_survivors(
+    t: torch.Tensor, t2_screen: float, capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The screen's t mode: ``(hit_idx, screen_count)`` of an existing
+    ``(M, P)`` float32 t tile, as ``screen_compact`` returns them, in one
+    kernel launch on a card."""
+    global compact_launches
+    _check(t, 1, 1)
+    capacity = int(capacity)
+    _check_screen(t, t2_screen, capacity)
+    if t.device.type == "cpu":
+        return compact_survivors_plain(t, t2_screen, capacity)
+    idx, count = _compact(t.contiguous(), None, t2_screen, capacity, 1.0, 0.0)
+    compact_launches += 1
+    return idx, count

@@ -255,6 +255,58 @@ def test_unported_paths_raise_not_implemented(what, cohort_files, tmp_path):
             study.plan(engine="dense", device="cpu", multivariate=True)
 
 
+@pytest.mark.parametrize("capacity", [5, 64, 4096])
+def test_sparse_epilogue_compaction_matches_reference(capacity):
+    """The sparse epilogue's own compaction (``screen=None``, the fused OLS
+    path's) against the reference's on the same r and t tiles: every output
+    exactly equal, overflow of the capacity included."""
+    from repro.core import association as ref_assoc
+    from repro_torch.core import association
+
+    rng = np.random.default_rng(capacity)
+    r = rng.normal(scale=0.05, size=(300, 70)).astype(np.float32)
+    r[7] = 0.0                                   # a masked marker
+    r[8:].reshape(-1)[rng.choice(r[8:].size, 40, replace=False)] = 0.5
+    t = (r * np.sqrt(398.0 / (1.0 - r * r))).astype(np.float32)
+    t2 = 40.0
+    got = association.sparse_epilogue_outputs(
+        torch.from_numpy(r), torch.from_numpy(t), 398.0,
+        association.SparseEpilogue(THRESHOLD, t2, capacity))
+    want = ref_assoc.sparse_epilogue_outputs(
+        r, t, 398.0, ref_assoc.SparseEpilogue(THRESHOLD, t2, capacity))
+    assert set(got) == set(want)
+    for key, value in got.items():
+        w = np.asarray(want[key])
+        assert value.numpy().dtype == w.dtype, key
+        np.testing.assert_array_equal(value.numpy(), w, err_msg=key)
+    assert int(got["screen_count"]) == 40
+
+
+@pytest.mark.gpu
+def test_cuda_sparse_epilogue_compacts_in_kernel():
+    """On a card the sparse epilogue compacts through the screen kernel's t
+    mode, once per call, with the CPU's results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the compaction is a CUDA C++ kernel")
+    from repro_torch.core import association
+    from repro_torch.kernels import tstat as ts
+
+    rng = np.random.default_rng(3)
+    r = rng.normal(scale=0.05, size=(4096, 1024)).astype(np.float32)
+    r.reshape(-1)[rng.choice(r.size, 5000, replace=False)] = 0.5
+    t = (r * np.sqrt(398.0 / (1.0 - r * r))).astype(np.float32)
+    plan = association.SparseEpilogue(THRESHOLD, 40.0, 4096)
+    want = association.sparse_epilogue_outputs(torch.from_numpy(r), torch.from_numpy(t),
+                                               398.0, plan)
+    before = ts.compact_launches
+    got = association.sparse_epilogue_outputs(torch.from_numpy(r).cuda(),
+                                              torch.from_numpy(t).cuda(), 398.0, plan)
+    torch.cuda.synchronize()
+    assert ts.compact_launches == before + 1
+    for key, value in got.items():
+        assert torch.equal(value.cpu(), want[key]), key
+
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[.\s]|$)", re.M)
 
 
