@@ -43,10 +43,34 @@ Phases, each printing one JSON line:
                   pinned at (1-h2)/h2; streamed GRM, eigendecomposition and
                   rotation times; one screen launch per cell; every planted
                   effect must be a hit
+  executor        the multi-device executor (``MultiDeviceExecutor``) on one
+                  slot (``cuda:0``, its own CUDA stream) under the shared-fs
+                  scheduler backend, on the scan cohort: the fused engine
+                  marker-major, trait-major (lease 1) and unpipelined, and the
+                  dense engine, each canonical-bitwise equal to its serial run
+                  from ``scan`` or ``cross``, gwas_dot (fused) and the t-mode
+                  compaction launched once per cell; a stream audit checks
+                  that every staging copy, kernel call and device-to-host
+                  pull of the slot's worker, tail and look-ahead threads ran
+                  on the slot's stream, not the default one; per run the
+                  time split, the executor's info and the card's peak memory;
+                  a control run without the tail flush before the last
+                  blocking claim (the reference's order) shows its cost
+  multihost       two host processes on the card share one checkpoint
+                  directory under shared-fs (the scan cohort in 16 cells of
+                  1,024 markers x 1,024 traits, each host's study from
+                  ``Study.from_arrays`` over the .bed and saved .npy tables):
+                  both hosts' hits.tsv, per_trait_best.tsv and qc.tsv equal
+                  each other's and a serial run's byte for byte, each host
+                  computing at least one cell; then host A is SIGKILLed after
+                  its first committed cell and host B, with a 2 s lease TTL,
+                  reclaims A's leases and writes the same bytes
   lmm_identities  N=4,096, M=2,048 in 2 PLINK shards, P=512, REML and LOCO:
                   fused sparse == fused dense-audit (the tstat kernel),
-                  blocked == unblocked, packed == dense staging, bitwise; the
-                  fused epilogue vs the dense one at the oracle tolerances
+                  blocked == unblocked, packed == dense staging, and the
+                  executor on one slot under shared-fs, bitwise (the last
+                  launching the screen once per cell); the fused epilogue vs
+                  the dense one at the oracle tolerances
   cli             ``python -m repro_torch.launch.gwas scan`` with
                   ``--engine fused``, and ``--engine lmm --lmm-epilogue fused
                   --loco`` on a split fileset, on a small cohort; KING kinship
@@ -61,7 +85,13 @@ exits non-zero; without a CUDA device it exits 1 and prints no result.
 
 runs the device phase and the named phases among ``build``, ``kernel`` and
 ``kernel_tstat`` only (a quick check of the kernels); it prints neither the
-``kernels`` line nor the ``ok`` line.
+``kernels`` line nor the ``ok`` line.  On a machine with two or more cards,
+
+    python3 chip_smoke.py --only build,devices
+
+runs the multi-device executor over every card (``devices``: the scan
+cohort in 16 cells, fused and dense, bitwise against the serial run on
+``cuda:0``, each slot on its own card and stream).
 """
 from __future__ import annotations
 
@@ -120,6 +150,9 @@ LMM_IDENT = dict(n_samples=4096, n_markers=2048, n_shards=2, n_traits=512,
 # fused vs dense lmm epilogue (tests/test_oracle.py): the same r, t within
 # 1e-4 and nlp within 1e-3, absolute
 LMM_EPILOGUE_TOL = (0.0, (0.0, 1e-4), (0.0, 1e-3))
+# the two-host shared-fs run: the scan cohort in batches of 1,024 markers and
+# blocks of 1,024 traits (16 cells); host A's lease TTL when it is killed
+MULTIHOST = dict(batch_markers=1024, trait_block=1024, kill_lease_ttl=2.0)
 TSTAT_SHAPES = (("cell", (4096, 1024)), ("ragged", (1000, 300)))
 TSTAT_CAPACITY = 4096
 # elements per tile of the compaction kernel (csrc/tstat.cu); one 8-byte
@@ -224,13 +257,14 @@ def phase_device() -> tuple[dict, str]:
     import torch
 
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    smi = cards[0]
     info = {"kind": name, "count": torch.cuda.device_count()}
     emit({"phase": "device", **info, "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, **({"nvidia_smi_all": cards} if len(cards) > 1 else {})})
     return info, smi
 
 
@@ -460,7 +494,10 @@ class Collect:
 def _run(study, out_dir: str | None, **plan_kwargs):
     """Plan, prepare and stream one scan; returns (collector, summary, timing).
     The launch counts are the scan's own: set to 0 after the prepare (the
-    lmm setup runs no kernel of this repo) and read when the stream ends."""
+    lmm setup runs no kernel of this repo) and read when the stream ends.
+    ``max_memory_allocated`` is the card's peak over the stream."""
+    import torch
+
     from repro_torch.api import TsvWriter
 
     plan = study.plan(device=DEVICE, **plan_kwargs)
@@ -473,7 +510,10 @@ def _run(study, out_dir: str | None, **plan_kwargs):
 
     def progress(m):
         s = m.summary()
-        busy = s["per_device"]["serial"]["busy_s"]
+        # the serial walk's label is "serial", an executor slot's "dev0" (or
+        # "<host>/dev0" under shared-fs); replayed cells count as "checkpoint"
+        busy = sum(d["busy_s"] for label, d in s["per_device"].items()
+                   if label != "checkpoint")
         cells.append({"cell": m.cells_done, "step_s": s["step_s"] - prev["step"],
                       "wall_s": busy - prev["busy"]})
         prev.update(step=s["step_s"], busy=busy)
@@ -481,11 +521,14 @@ def _run(study, out_dir: str | None, **plan_kwargs):
     session.progress = progress
     col = Collect()
     writers = [col] + ([TsvWriter(out_dir)] if out_dir else [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     summary = session.stream_to(*writers)
     wall = time.perf_counter() - t0
     launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
     metrics = session.metrics.summary()
     info = session.lmm_info
     lmm = None if info is None else {
@@ -501,6 +544,9 @@ def _run(study, out_dir: str | None, **plan_kwargs):
         "decode_s": metrics["decode_s"], "cells": cells,
         "grid": [session.n_batches, session.n_trait_blocks],
         "genotype_staging": session.prepared.ctx.genotype_staging,
+        "executor": session.executor_info,
+        "live_cells": metrics["live_cells"], "replayed_cells": metrics["replayed_cells"],
+        "max_memory_allocated": peak,
         **({"lmm": lmm} if lmm else {}),
     }
 
@@ -539,22 +585,30 @@ def _compare(a: Collect, b: Collect, threshold: float, tol=FUSED_TOL) -> dict:
             "lambda_gc": [la, lb]}
 
 
-def phase_scan(tmp: str):
-    import numpy as np
-
-    from repro_torch.api import GridSpec, Study
+def _scan_cohort(tmp: str):
+    """The scan cohort (``SCAN``, seed 2026) as ``tmp/cohort.bed`` and its
+    Study."""
+    from repro_torch.api import Study
     from repro_torch.io import PlinkBed, synth
     from repro_torch.io.plink import write_plink
 
-    t0 = time.perf_counter()
     cohort = synth.make_cohort(
         n_samples=SCAN["n_samples"], n_markers=SCAN["n_markers"],
         n_traits=SCAN["n_traits"], n_covariates=SCAN["n_covariates"],
         n_causal=SCAN["n_causal"], effect_size=SCAN["effect_size"], seed=2026,
     )
     bed = write_plink(os.path.join(tmp, "cohort"), cohort.dosages, sample_ids=cohort.sample_ids)
+    return Study.from_arrays(PlinkBed(bed), cohort.phenotypes, cohort.covariates), cohort
+
+
+def phase_scan(tmp: str):
+    import numpy as np
+
+    from repro_torch.api import GridSpec
+
+    t0 = time.perf_counter()
+    study, cohort = _scan_cohort(tmp)
     setup_s = time.perf_counter() - t0
-    study = Study.from_arrays(PlinkBed(bed), cohort.phenotypes, cohort.covariates)
     grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
     col, summary, timing = _run(study, os.path.join(tmp, "fused"), engine="fused", grid=grid)
     cells = timing["grid"][0] * timing["grid"][1]
@@ -576,7 +630,7 @@ def phase_scan(tmp: str):
     return study, cohort, col, timing
 
 
-def phase_cross(study, fused: Collect) -> None:
+def phase_cross(study, fused: Collect) -> Collect:
     from repro_torch.api import GridSpec
 
     grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
@@ -584,6 +638,7 @@ def phase_cross(study, fused: Collect) -> None:
     cmp = _compare(fused, dense, threshold=7.301)
     emit({"phase": "cross", "engines": ["fused", "dense"], **cmp,
           "dense_wall_s": timing["wall_s"], "dense_step_s": timing["step_s"]})
+    return dense
 
 
 def phase_identities(tmp: str, cohort) -> None:
@@ -613,6 +668,332 @@ def phase_identities(tmp: str, cohort) -> None:
     result = _bitwise(canon, "sparse", ("dense_epilogue", "blocked", "dense_staging"))
     emit({"phase": "identities", "markers": m, "hits": int(len(canon["sparse"]["hits"])),
           **result})
+
+
+class StreamAudit:
+    """Records, while active, every staging copy, kernel-wrapper call and
+    device-to-host pull made on the card: the wrapper, the calling thread
+    and the raw handle of the current stream of the tensor's device.  The
+    wrappers are replaced by pass-through spies (the kernels' own launch
+    counts are untouched) and restored on exit."""
+
+    def __init__(self):
+        self.calls: list[tuple[str, str, int]] = []
+        self._undo: list = []
+
+    def __enter__(self) -> "StreamAudit":
+        import threading
+
+        import torch
+
+        from repro_torch.core import engines, panels, sinks
+        from repro_torch.kernels import tstat as ts
+        from repro_torch.kernels.gwas_dot import gwas_dot as gd
+
+        def spy(mod, name, device_of):
+            real = getattr(mod, name)
+
+            def wrapped(*a, **k):
+                dev = device_of(*a, **k)
+                if dev is not None and dev.type == "cuda":
+                    dev = torch.device("cuda", dev.index if dev.index is not None
+                                       else torch.cuda.current_device())
+                    self.calls.append((name, threading.current_thread().name, dev.index,
+                                       torch.cuda.current_stream(dev).cuda_stream))
+                return real(*a, **k)
+
+            setattr(mod, name, wrapped)
+            self._undo.append((mod, name, real))
+
+        tensor_dev = lambda x, *a, **k: x.device if isinstance(x, torch.Tensor) else None  # noqa: E731
+        spy(engines, "to_device", lambda arr, device: device)
+        spy(panels, "to_device", lambda arr, device: device)
+        spy(sinks, "_host", tensor_dev)
+        spy(gd, "gwas_dot_fused", tensor_dev)
+        for name in ("compact_survivors", "screen_compact", "tstat"):
+            spy(ts, name, tensor_dev)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, real in reversed(self._undo):
+            setattr(mod, name, real)
+
+    def check_slot_streams(self, label: str) -> dict:
+        """Every call from an executor slot's threads (its worker, tail and
+        panel look-ahead, named by the slot's number) ran on one stream of
+        one device, not that device's default stream, and no two slots
+        shared a stream; the slots' kernels were among the calls."""
+        import re
+
+        import torch
+
+        slots: dict[str, set] = {}
+        for name, thread, index, stream in self.calls:
+            m = re.match(r"(scan-device-|slot-tail-|panel-prefetch-dev)(\d+)$", thread)
+            if m:
+                slots.setdefault(m.group(2), set()).add((index, stream))
+        check(bool(slots), f"{label}: no call from a slot thread")
+        for slot, pairs in slots.items():
+            check(len(pairs) == 1, f"{label}: slot {slot} ran on {pairs}")
+            (index, stream), = pairs
+            default = torch.cuda.default_stream(torch.device("cuda", index)).cuda_stream
+            check(stream != default, f"{label}: slot {slot} ran on the default stream")
+        check(len({p for pairs in slots.values() for p in pairs}) == len(slots),
+              f"{label}: two slots shared a stream")
+        kernels = sorted({c[0] for c in self.calls} - {"to_device", "_host"})
+        check(bool(kernels), f"{label}: no kernel launched")
+        return {"calls": len(self.calls), "slots": {s: sorted(p)[0][0] for s, p in slots.items()},
+                "threads": sorted({c[1].rstrip("0123456789") for c in self.calls}),
+                "kernel_wrappers": kernels, "one_stream_per_slot": True,
+                "default_stream": False}
+
+
+def phase_executor(tmp: str, study, fused: Collect, dense: Collect) -> dict:
+    """The multi-device executor at the scan cell: ``shared-fs`` on one slot
+    (``cuda:0`` and its own stream), the fused engine three ways and the
+    dense engine once, each canonical-bitwise equal to its serial run on the
+    default stream, with its kernels launched once per cell from the slot's
+    stream."""
+    from repro_torch.api import ExecSpec, GridSpec
+
+    grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
+    runs = {
+        "fused": ("fused", dict()),
+        "fused_trait_major": ("fused", dict(placement="trait-major", lease_batches=1)),
+        "fused_unpipelined": ("fused", dict(slot_prefetch=0, autotune_lease=False)),
+        "dense": ("dense", dict()),
+    }
+    serial = {"fused": fused.canonical(), "dense": dense.canonical()}
+    rows = {}
+    for name, (engine, ex) in runs.items():
+        with StreamAudit() as audit:
+            col, _, timing = _run(
+                study, None, engine=engine, grid=grid,
+                checkpoint_dir=os.path.join(tmp, f"ck_{name}"),
+                executor=ExecSpec(devices=1, backend="shared-fs", host_id="h0", **ex),
+            )
+        cells = timing["grid"][0] * timing["grid"][1]
+        check(timing["live_cells"] == cells, f"executor/{name}: {timing['live_cells']} live "
+              f"cells of {cells}")
+        kernels = ("gwas_dot", "compact_survivors") if engine == "fused" else ("compact_survivors",)
+        for k in kernels:
+            check(timing["launches"][k] == cells, f"executor/{name}: {k} launched "
+                  f"{timing['launches'][k]} times, not once per cell ({cells})")
+        _bitwise({"serial": serial[engine], name: col.canonical()}, "serial", (name,))
+        info = timing["executor"]
+        rows[name] = {
+            "engine": engine, "bitwise_vs_serial": True, "launches": timing["launches"],
+            **{k: timing[k] for k in ("wall_s", "prepare_s", "step_s", "extract_s",
+                                     "decode_s", "max_memory_allocated", "cells")},
+            "autotune": info["autotune"], "wait_share": info["autotune"]["wait_share"],
+            "workers": info["workers"], "placement": info["placement"],
+            "slot_prefetch": info["slot_prefetch"],
+            "streams": audit.check_slot_streams(name),
+        }
+    # Control: the reference's order, in which a worker's last blocking
+    # claim does not wait for its own tail first and so sleeps one lease
+    # poll (1 s at the default 60 s TTL) on its own undone lease.
+    from repro_torch.api import session as session_mod
+
+    flush = session_mod._SlotTail.flush
+    session_mod._SlotTail.flush = lambda self: None
+    try:
+        col, _, timing = _run(
+            study, None, engine="fused", grid=grid,
+            checkpoint_dir=os.path.join(tmp, "ck_control"),
+            executor=ExecSpec(devices=1, backend="shared-fs", host_id="h0"),
+        )
+    finally:
+        session_mod._SlotTail.flush = flush
+    _bitwise({"serial": serial["fused"], "control": col.canonical()}, "serial", ("control",))
+    rows["fused_no_tail_flush"] = {
+        "engine": "fused", "bitwise_vs_serial": True,
+        **{k: timing[k] for k in ("wall_s", "step_s", "extract_s", "decode_s")},
+        "workers": timing["executor"]["workers"],
+    }
+    emit({"phase": "executor", "devices": 1, "backend": "shared-fs", **SCAN, "runs": rows})
+    return rows
+
+
+def phase_devices(tmp: str) -> dict:
+    """The multi-device executor over every visible card:
+    the scan cohort in 16 cells (1,024 markers x 1,024 traits), fused and
+    dense, each bitwise equal to its serial run on ``cuda:0``, one kernel
+    launch per cell, each slot on its own card and stream.  Needs two or
+    more cards; not part of the default run."""
+    import torch
+
+    from repro_torch.api import ExecSpec, GridSpec
+
+    n = torch.cuda.device_count()
+    check(n >= 2, f"phase devices needs 2 or more cards, found {n}")
+    study, _ = _scan_cohort(tmp)
+    grid = GridSpec(batch_markers=MULTIHOST["batch_markers"],
+                    trait_block=MULTIHOST["trait_block"])
+    rows = {}
+    for engine in ("fused", "dense"):
+        serial, _, base = _run(study, None, engine=engine, grid=grid)
+        # twice: the first run also pays each further card's first use
+        # (context, kernel modules, cuBLAS handle, allocator pools)
+        for run in ("first", "second"):
+            with StreamAudit() as audit:
+                col, _, timing = _run(study, None, engine=engine, grid=grid,
+                                      executor=ExecSpec(devices=n))
+            label = f"devices/{engine}/{run}"
+            cells = timing["grid"][0] * timing["grid"][1]
+            kernels = (("gwas_dot", "compact_survivors") if engine == "fused"
+                       else ("compact_survivors",))
+            for k in kernels:
+                check(timing["launches"][k] == cells, f"{label}: {k} launched "
+                      f"{timing['launches'][k]} times, not once per cell ({cells})")
+            _bitwise({"serial": serial.canonical(), "multi": col.canonical()}, "serial",
+                     ("multi",))
+            info = timing["executor"]
+            check(info["devices"] == n, f"{label}: {info['devices']} slots for {n} cards")
+            streams = audit.check_slot_streams(label)
+            busy = [w for w, st in info["workers"].items() if st["completed"] > 0]
+            check(len(busy) >= 2, f"{label}: only {busy} computed cells")
+            rows[f"{engine}_{run}"] = {
+                "bitwise_vs_serial": True, "cells": cells, "launches": timing["launches"],
+                "serial_wall_s": base["wall_s"], "serial_extract_s": base["extract_s"],
+                "wall_s": timing["wall_s"],
+                **{k: timing[k] for k in ("step_s", "extract_s", "decode_s",
+                                         "max_memory_allocated")},
+                "workers": info["workers"], "autotune": info["autotune"], "streams": streams,
+            }
+    emit({"phase": "devices", "cards": n, **MULTIHOST, "runs": rows})
+    return rows
+
+
+_HOST = """
+import json, os, sys, time
+sys.path.insert(0, os.path.join(sys.argv[1], "src"))
+import numpy as np
+from repro_torch.api import ExecSpec, GridSpec, Study, TsvWriter
+from repro_torch.io import PlinkBed
+
+here, bed, ck, out, host, ttl, barrier = sys.argv[1:8]
+study = Study.from_arrays(PlinkBed(bed), np.load(bed[:-4] + ".pheno.npy"),
+                          np.load(bed[:-4] + ".cov.npy"), device=sys.argv[8])
+plan = study.plan(engine="fused", device=sys.argv[8], checkpoint_dir=ck,
+                  grid=GridSpec(batch_markers=int(sys.argv[9]), trait_block=int(sys.argv[10])),
+                  executor=ExecSpec(devices=1, backend="shared-fs", host_id=host,
+                                    lease_ttl=float(ttl)))
+plan.prepare()
+if barrier != "-":
+    # start the scan together with the peer host
+    open(os.path.join(barrier, host), "w").close()
+    while len(os.listdir(barrier)) < 2:
+        time.sleep(0.01)
+session = plan.run()
+t0 = time.perf_counter()
+session.stream_to(TsvWriter(out))
+m = session.metrics.summary()
+print(json.dumps({"host": host, "wall_s": time.perf_counter() - t0,
+                  "live_cells": m["live_cells"], "replayed_cells": m["replayed_cells"],
+                  "workers": session.executor_info["workers"]}), flush=True)
+"""
+
+
+def _spawn_host(tmp: str, bed: str, ck: str, host: str, ttl: float, barrier: str):
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-c", _HOST, HERE, bed, ck, os.path.join(tmp, host), host, str(ttl),
+         barrier, DEVICE, str(MULTIHOST["batch_markers"]), str(MULTIHOST["trait_block"])],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def _host_result(proc, host: str, timeout: float = 600) -> dict:
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0, f"host {host} failed ({proc.returncode}):\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _tsv_bytes(out: str) -> dict:
+    return {f: open(os.path.join(out, f), "rb").read()
+            for f in ("hits.tsv", "per_trait_best.tsv", "qc.tsv")}
+
+
+def phase_multihost(tmp: str, study, cohort) -> dict:
+    """Two host processes on one card share one checkpoint directory under
+    ``shared-fs`` at full width (16 cells).  Live: both write byte-identical
+    outputs, equal to a serial in-process run, each computing at least one
+    cell.  Killed: host A is SIGKILLed after its first committed cell, and
+    host B (short lease TTL) reclaims A's leases and writes the same bytes."""
+    import numpy as np
+
+    from repro_torch.api import GridSpec
+
+    work = os.path.join(tmp, "multihost")
+    os.makedirs(work)
+    bed = os.path.join(tmp, "cohort.bed")
+    np.save(bed[:-4] + ".pheno.npy", cohort.phenotypes)
+    np.save(bed[:-4] + ".cov.npy", cohort.covariates)
+    grid = GridSpec(batch_markers=MULTIHOST["batch_markers"],
+                    trait_block=MULTIHOST["trait_block"])
+    _, _, serial = _run(study, os.path.join(work, "serial"), engine="fused", grid=grid)
+    cells = serial["grid"][0] * serial["grid"][1]
+    ref = _tsv_bytes(os.path.join(work, "serial"))
+    row = {"phase": "multihost", **MULTIHOST, "cells": cells, "serial_wall_s": serial["wall_s"]}
+
+    # two live hosts, started together after both have prepared
+    live = os.path.join(work, "live")
+    barrier = os.path.join(live, "barrier")
+    os.makedirs(barrier)
+    t0 = time.perf_counter()
+    procs = {h: _spawn_host(live, bed, os.path.join(live, "ck"), h, 60.0, barrier)
+             for h in ("hostA", "hostB")}
+    results = {h: _host_result(p, h) for h, p in procs.items()}
+    row["live"] = {"command_s": time.perf_counter() - t0, **{
+        h: {k: r[k] for k in ("wall_s", "live_cells", "replayed_cells")}
+        for h, r in results.items()}}
+    for h, r in results.items():
+        check(r["live_cells"] >= 1, f"multihost: {h} computed no cell")
+        check(r["live_cells"] + r["replayed_cells"] == cells,
+              f"multihost: {h} emitted {r['live_cells'] + r['replayed_cells']} of {cells} cells")
+        check(_tsv_bytes(os.path.join(live, h)) == ref,
+              f"multihost: {h}'s outputs differ from the serial run")
+
+    # host A killed after its first committed cell; host B reclaims its leases
+    killed = os.path.join(work, "killed")
+    os.makedirs(killed)
+    ck = os.path.join(killed, "ck")
+    ttl = MULTIHOST["kill_lease_ttl"]
+    victim = _spawn_host(killed, bed, ck, "hostA", ttl, "-")
+    manifest = os.path.join(ck, "manifest.json")
+    deadline = time.monotonic() + 300
+    committed = 0
+    while time.monotonic() < deadline and victim.poll() is None:
+        try:
+            with open(manifest) as f:
+                committed = len(json.load(f)["completed"])
+        except (OSError, ValueError):
+            committed = 0
+        if committed >= 1:
+            break
+        time.sleep(0.01)
+    check(victim.poll() is None and committed >= 1,
+          f"multihost: host A ended ({victim.poll()}) or committed nothing before the kill")
+    victim.kill()
+    victim.communicate(timeout=60)
+    with open(manifest) as f:
+        at_kill = len(json.load(f)["completed"])
+    check(at_kill < cells, "multihost: host A finished the grid before the kill")
+    t0 = time.perf_counter()
+    survivor = _host_result(_spawn_host(killed, bed, ck, "hostB", ttl, "-"), "hostB")
+    reclaimed = sum(w["reclaimed"] for w in survivor["workers"].values())
+    check(reclaimed >= 1, "multihost: host B reclaimed none of host A's leases")
+    check(survivor["live_cells"] + survivor["replayed_cells"] == cells,
+          "multihost: host B did not emit the whole grid")
+    check(_tsv_bytes(os.path.join(killed, "hostB")) == ref,
+          "multihost: host B's outputs differ from the serial run")
+    row["killed"] = {"hostA_committed_at_kill": at_kill, "command_s": time.perf_counter() - t0,
+                     "hostB": {k: survivor[k] for k in ("wall_s", "live_cells", "replayed_cells")},
+                     "reclaimed": reclaimed}
+    row["bytes_equal_to_serial"] = True
+    emit(row)
+    return row
 
 
 def _bitwise(canon: dict, base_name: str, others) -> dict:
@@ -900,7 +1281,7 @@ def phase_lmm_scan(tmp: str) -> dict:
 def phase_lmm_identities(tmp: str) -> dict:
     """The port's bitwise identities on the mixed-model path (REML, LOCO over
     two shards), and the fused epilogue against the dense one."""
-    from repro_torch.api import GridSpec, IOSpec, LmmSpec, Study
+    from repro_torch.api import ExecSpec, GridSpec, IOSpec, LmmSpec, Study
     from repro_torch.io import open_genotypes, synth
 
     cfg = LMM_IDENT
@@ -919,18 +1300,27 @@ def phase_lmm_identities(tmp: str) -> dict:
         "unblocked": dict(lmm=fused, grid=GridSpec(batch_markers=cfg["batch_markers"])),
         "dense_staging": dict(lmm=fused, grid=grid, io=IOSpec(genotype_staging="dense")),
         "dense_epilogue": dict(lmm=LmmSpec(epilogue="dense", loco=True), grid=grid),
+        # the multi-device executor on one slot (its own stream) under shared-fs
+        "shared_fs": dict(lmm=fused, grid=grid, checkpoint_dir=os.path.join(tmp, "ck_lmm"),
+                          executor=ExecSpec(devices=1, backend="shared-fs", host_id="h0")),
     }
-    cols, canon, launches, info = {}, {}, {}, {}
+    cols, canon, launches, info, grids = {}, {}, {}, {}, {}
     for name, kw in runs.items():
         col, _, timing = _run(study, None, engine="lmm", **kw)
         cols[name], canon[name], launches[name] = col, col.canonical(), timing["launches"]
         info[name] = {"wall_s": timing["wall_s"], "prepare_s": timing["prepare_s"],
                       **timing["lmm"]}
+        grids[name] = timing["grid"]
+    cells = grids["shared_fs"][0] * grids["shared_fs"][1]
     check(launches["sparse"]["screen_compact"] > 0, "the sparse run never launched the screen")
+    check(launches["shared_fs"]["screen_compact"] == cells,
+          f"the shared-fs run launched the screen {launches['shared_fs']['screen_compact']} "
+          f"times, not once per cell ({cells})")
     check(launches["dense_audit"]["tstat"] > 0, "the dense-audit run never launched tstat")
     check(launches["dense_epilogue"]["tstat"] + launches["dense_epilogue"]["screen_compact"]
           == 0, "the dense epilogue launched a t-statistic kernel")
-    result = _bitwise(canon, "sparse", ("dense_audit", "unblocked", "dense_staging"))
+    result = _bitwise(canon, "sparse", ("dense_audit", "unblocked", "dense_staging",
+                                         "shared_fs"))
     cmp = _compare(cols["sparse"], cols["dense_epilogue"], threshold=7.301,
                    tol=LMM_EPILOGUE_TOL)
     emit({"phase": "lmm_identities", **cfg, "hits": int(len(canon["sparse"]["hits"])),
@@ -1002,7 +1392,18 @@ def phase_cli(tmp: str) -> None:
     emit(row)
 
 
-QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": phase_kernel_tstat}
+def _in_tmp(phase):
+    def run():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            return phase(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return run
+
+
+QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": phase_kernel_tstat,
+                "devices": _in_tmp(phase_devices)}
 
 
 def main(argv: list[str]) -> int:
@@ -1036,9 +1437,11 @@ def main(argv: list[str]) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         study, cohort, fused, timing = phase_scan(tmp)
-        phase_cross(study, fused)
+        dense = phase_cross(study, fused)
         phase_identities(tmp, cohort)
-        del study, cohort, fused
+        phase_executor(tmp, study, fused, dense)
+        phase_multihost(tmp, study, cohort)
+        del study, cohort, fused, dense
         lmm_timing = phase_lmm_scan(tmp)
         torch.cuda.empty_cache()
         audit_launches = phase_lmm_identities(tmp)

@@ -22,6 +22,7 @@ from repro_torch.api.metrics import CellTiming, ScanMetrics
 from repro_torch.api.session import (
     CellResult,
     CheckpointReplay,
+    MultiDeviceExecutor,
     PreparedScan,
     ScanPlan,
     ScanSession,
@@ -57,6 +58,7 @@ __all__ = [
     "ScanPlan",
     "ScanSession",
     "SerialExecutor",
+    "MultiDeviceExecutor",
     "PreparedScan",
     "CellResult",
     "CheckpointReplay",

@@ -282,21 +282,43 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class EngineDeviceState:
-    """Everything an engine stages onto the scan's device — an executor
-    slot: the step, and the placement of each claimed batch's arrays on
-    ``ctx.device``.  Host-side amortized state (GRM/REML results, rotated
-    panels) stays on the engine; staged tensors live here."""
+    """Everything an engine stages onto one device — an executor slot: the
+    step, and the placement of each claimed batch's arrays.
+
+    The multi-device executor gives every device its own state: a step of
+    its own, the staging of each claimed batch, and whatever device caches
+    the engine keeps (the lmm engine's per-scope rotation pair and rotated
+    panel blocks live in its subclass).  ``device=None`` is the serial slot
+    on ``ctx.device``, with the plan's own context.  Host-side amortized state
+    (GRM/REML results, rotated panels in float32) stays on the engine and is
+    shared by every slot; only staged tensors and the step's prolog memo are
+    per slot.  ``put`` is the one placement primitive; it issues the copy on
+    the calling thread's current stream (the slot's, under the executor).
+    """
 
     def __init__(self, engine: "ScanEngine", ctx: "EngineContext",
-                 *, step: Callable[..., dict] | None = None):
+                 *, device: torch.device | None = None,
+                 step: Callable[..., dict] | None = None):
         self.engine = engine
+        if device is not None:
+            # Steps close over context tensors (the covariate basis of the
+            # exact-dof residualization); place them on this slot's device
+            # before the step is built.  A copy moves bytes, never values.
+            device = torch.device(device)
+            ctx = dataclasses.replace(
+                ctx, device=device,
+                q_basis=None if ctx.q_basis is None else ctx.q_basis.to(device),
+            )
         self.ctx = ctx
         self.device = ctx.device
-        # The step's one-slot prolog memo keys on the staged tensor's
-        # identity, so a slot owns its step.
+        # A fresh step per slot: the one-slot prolog memo inside keys on the
+        # staged tensor's identity, which is per device — sharing a step
+        # across slots would thrash the memo and race it across threads.
         self.step = step if step is not None else engine.build_step(ctx)
 
     def put(self, arr: Any) -> torch.Tensor:
+        """Stage one host array onto this slot's device (asynchronous on
+        CUDA)."""
         return to_device(arr, self.device)
 
     def stage(self, host_batch: HostBatch) -> tuple:
@@ -346,9 +368,13 @@ class ScanEngine:
         raise NotImplementedError
 
     def make_device_state(
-        self, ctx: EngineContext, *, step: Callable[..., dict] | None = None,
+        self, ctx: EngineContext, *, device: torch.device | None = None,
+        step: Callable[..., dict] | None = None,
     ) -> EngineDeviceState:
-        return EngineDeviceState(self, ctx, step=step)
+        """One executor slot's device residency; see ``EngineDeviceState``.
+        ``step`` reuses an already-built step for the slot (the serial
+        executor passes the plan's); by default the slot builds its own."""
+        return EngineDeviceState(self, ctx, device=device, step=step)
 
 
 _REGISTRY: dict[str, type[ScanEngine]] = {}
@@ -806,13 +832,17 @@ class FusedEngine(ScanEngine):
 
 
 class _LMMDeviceState(EngineDeviceState):
-    """The lmm engine's share of the device: the staged per-scope
+    """One device's share of the lmm engine: the staged per-scope
     (rotation, qhat) pair and the per-(scope, trait-block) rotated panel
-    slices, each LRU-bounded.  The host float32 panels live on the engine."""
+    slices, each LRU-bounded per slot.  The host float32 panels live on the
+    engine, shared by every slot; each slot stages its own copies onto its
+    own device, so a multi-device LOCO scan holds at most
+    ``_DEV_SCOPES_MAX`` rotations per device."""
 
     def __init__(self, engine: "LMMEngine", ctx: EngineContext,
-                 *, step: Callable[..., dict] | None = None):
-        super().__init__(engine, ctx, step=step)
+                 *, device: torch.device | None = None,
+                 step: Callable[..., dict] | None = None):
+        super().__init__(engine, ctx, device=device, step=step)
         # scope -> staged (rotation, qhat); evicting a scope drops its
         # resident panel blocks with it
         self._dev = DeviceLRU(
@@ -967,9 +997,10 @@ class LMMEngine(ScanEngine):
         )
 
     def make_device_state(
-        self, ctx: EngineContext, *, step: Callable[..., dict] | None = None,
+        self, ctx: EngineContext, *, device: torch.device | None = None,
+        step: Callable[..., dict] | None = None,
     ) -> EngineDeviceState:
-        return _LMMDeviceState(self, ctx, step=step)
+        return _LMMDeviceState(self, ctx, device=device, step=step)
 
     def prepare_batch(self, source: Any, batch: MarkerBatch, ctx: EngineContext) -> HostBatch:
         """Host side only: read and subset genotypes.  The scope's rotation

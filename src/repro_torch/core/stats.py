@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -261,6 +262,19 @@ def refine_neglog10p(
     bit-identical values for the same t.  Padding lanes (t=0) map to nlp=0
     and are sliced off.  ``width=None`` evaluates the buffer as one call.
     """
+    with _REFINE_LOCK:
+        return _refine(t_values, dof, width)
+
+
+# One refine at a time per process.  A refine is a chain of a few hundred
+# small eager ops, each of which releases and retakes the GIL; when the
+# executor's slot tails refine concurrently they convoy on the GIL, and
+# every call runs several times slower than alone.  Taking turns costs
+# nothing in bits: the same chunks run through the same ops.
+_REFINE_LOCK = threading.Lock()
+
+
+def _refine(t_values: np.ndarray, dof: float, width: int | None) -> np.ndarray:
     flat = np.ascontiguousarray(np.asarray(t_values, np.float32).ravel())
     if width is None:
         return neglog10_p_from_t(torch.from_numpy(flat.copy()), dof).numpy()

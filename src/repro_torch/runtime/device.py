@@ -7,9 +7,11 @@ pins float32 products to full fp32: the reference computes them at
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device", "synchronize"]
+__all__ = ["on_stream", "resolve_device", "synchronize"]
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
@@ -42,3 +44,13 @@ def synchronize(device: torch.device) -> None:
     """Wait for every kernel queued on ``device`` (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def on_stream(stream: "torch.cuda.Stream | None"):
+    """Context in which the calling thread issues its CUDA work on
+    ``stream``; ``None`` (the CPU, or the serial executor's default stream)
+    changes nothing.  PyTorch's current stream is per thread, so every
+    thread that works for one executor slot enters the slot's stream."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)

@@ -19,7 +19,7 @@ from repro.api import GridSpec as RefGridSpec  # noqa: E402
 from repro.api import Study as RefStudy  # noqa: E402
 from repro.api import TsvWriter as RefTsvWriter  # noqa: E402
 from repro.io import synth  # noqa: E402
-from repro_torch.api import ExecSpec, GridSpec, Study, TsvWriter  # noqa: E402
+from repro_torch.api import GridSpec, Study, TsvWriter  # noqa: E402
 from repro_torch.launch.gwas import main  # noqa: E402
 
 # The suite runs several worker processes at once; PyTorch's intra-op pool
@@ -239,17 +239,11 @@ def test_cuda_device_without_a_card_raises(cohort_files):
         study.plan(engine="fused").prepare()
 
 
-@pytest.mark.parametrize("what", ["devices", "backend", "mesh", "multivariate"])
+@pytest.mark.parametrize("what", ["mesh", "multivariate"])
 def test_unported_paths_raise_not_implemented(what, cohort_files, tmp_path):
     study = Study.from_files(cohort_files["bed"], cohort_files["pheno"], cohort_files["cov"])
     with pytest.raises(NotImplementedError):
-        if what == "devices":
-            study.plan(engine="fused", device="cpu", executor=ExecSpec(devices=2)).run()
-        elif what == "backend":
-            study.plan(engine="fused", device="cpu", checkpoint_dir=str(tmp_path),
-                       executor=ExecSpec(backend="shared-fs"))
-            raise AssertionError("unreachable")  # pragma: no cover
-        elif what == "mesh":
+        if what == "mesh":
             study.plan(engine="fused", device="cpu", mesh=object())
         elif what == "multivariate":
             study.plan(engine="dense", device="cpu", multivariate=True)
