@@ -35,6 +35,12 @@ Phases, each printing one JSON line:
   cross           the same cohort on the dense engine (a torch.matmul GEMM):
                   same hits outside a +/-0.05 band, values within the fused
                   oracle tolerances, lambda_gc within 1e-3
+  multivariate    ``gwas scan --multivariate``: the same cohort unblocked on
+                  the dense engine; hits.tsv and per_trait_best.tsv byte-equal
+                  to cross's; S against a float64 oracle on the card's own r,
+                  omnibus_nlp against scipy's float64 gammaincc, n_traits_eff
+                  against float64 Li & Ji; the whitening's time; no kernel
+                  launched; the reference's omnibus medians on its test cohort
   identities      1,024 markers at full N and P: sparse == dense epilogue,
                   blocked == unblocked trait grid, packed == dense staging
   lmm_scan        the mixed-model path: ``gwas scan --engine lmm
@@ -47,8 +53,9 @@ Phases, each printing one JSON line:
                   slot (``cuda:0``, its own CUDA stream) under the shared-fs
                   scheduler backend, on the scan cohort: the fused engine
                   marker-major, trait-major (lease 1) and unpipelined, and the
-                  dense engine, each canonical-bitwise equal to its serial run
-                  from ``scan`` or ``cross``, gwas_dot (fused) and the t-mode
+                  dense engine, and the dense multivariate screen, each
+                  canonical-bitwise equal to its serial run from ``scan``,
+                  ``cross`` or ``multivariate``, gwas_dot (fused) and the t-mode
                   compaction launched once per cell; a stream audit checks
                   that every staging copy, kernel call and device-to-host
                   pull of the slot's worker, tail and look-ahead threads ran
@@ -72,9 +79,12 @@ Phases, each printing one JSON line:
                   launching the screen once per cell); the fused epilogue vs
                   the dense one at the oracle tolerances
   cli             ``python -m repro_torch.launch.gwas scan`` with
-                  ``--engine fused``, and ``--engine lmm --lmm-epilogue fused
-                  --loco`` on a split fileset, on a small cohort; KING kinship
-                  on the card vs the CPU
+                  ``--engine fused``, ``--engine lmm --lmm-epilogue fused
+                  --loco`` on a split fileset, and ``--multivariate`` with a
+                  checkpoint, on a small cohort; ``merge`` of that checkpoint
+                  (the scan's bytes), ``report``, and ``grm --loco --spectrum``
+                  against the in-process streamed GRM and spectrum; KING
+                  kinship on the card vs the CPU
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then come a ``kernels`` JSON line, the ``nvidia-smi`` line, and as
@@ -133,6 +143,17 @@ SPLIT_P, SPLIT_M = 512, 2048
 SCAN = dict(n_samples=23000, n_markers=8192, n_traits=2048, n_covariates=12,
             n_causal=32, effect_size=0.06, batch_markers=4096, trait_block=1024)
 IDENTITY_MARKERS = 1024
+# the multivariate screen's tolerances: S relative to a float64 oracle on
+# the card's own r; omnibus_nlp (rel, abs) against scipy's float64 gammaincc
+# (the p-value contract of tests/test_oracle.py); n_traits_eff against
+# float64 Li & Ji, in float32 units of 1 (2^-24) per trait and level of a
+# pairwise sum: P eigenvalues near 1, each rounded by the float32 eigensolver
+# and summed in float32 (4 P log2 P ulps: 5.4e-3 at P = 2,048)
+MV_TOL = dict(s_rel=1e-3, nlp=(2e-3, 5e-3), meff_ulps_per_trait_level=4)
+# the reference's own omnibus check (tests/test_screening.py) runs on its
+# test cohort (tests/conftest.py)
+MV_SMALL = dict(n_samples=400, n_markers=600, n_traits=12, n_causal=8, effect_size=0.6,
+                missing_rate=0.02, seed=7)
 # fused-engine oracle tolerances (tests/test_oracle.py): r, t (rel, abs),
 # nlp (rel, abs)
 FUSED_TOL = (5e-5, (5e-4, 5e-4), (5e-3, 1e-2))
@@ -481,8 +502,9 @@ class Collect:
         tracks = {}
         for (b, k), a in sorted(self.cells.items()):
             if "maf" in a:
-                for key in ("maf", "valid", "t_probe"):
-                    tracks.setdefault(key, []).append(a[key])
+                for key in ("maf", "valid", "t_probe", "omnibus_nlp"):
+                    if key in a:
+                        tracks.setdefault(key, []).append(a[key])
         return {
             "hits": hits, "hit_stats": stats,
             "best_nlp": self.best.best_nlp, "best_marker": self.best.best_marker,
@@ -491,7 +513,7 @@ class Collect:
         }
 
 
-def _run(study, out_dir: str | None, **plan_kwargs):
+def _run(study, out_dir: str | None, collect: "Collect | None" = None, **plan_kwargs):
     """Plan, prepare and stream one scan; returns (collector, summary, timing).
     The launch counts are the scan's own: set to 0 after the prepare (the
     lmm setup runs no kernel of this repo) and read when the stream ends.
@@ -519,7 +541,7 @@ def _run(study, out_dir: str | None, **plan_kwargs):
         prev.update(step=s["step_s"], busy=busy)
 
     session.progress = progress
-    col = Collect()
+    col = Collect() if collect is None else collect
     writers = [col] + ([TsvWriter(out_dir)] if out_dir else [])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -630,15 +652,168 @@ def phase_scan(tmp: str):
     return study, cohort, col, timing
 
 
-def phase_cross(study, fused: Collect) -> Collect:
+def phase_cross(tmp: str, study, fused: Collect) -> Collect:
     from repro_torch.api import GridSpec
 
     grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
-    dense, _, timing = _run(study, None, engine="dense", grid=grid)
+    dense, _, timing = _run(study, os.path.join(tmp, "dense"), engine="dense", grid=grid)
     cmp = _compare(fused, dense, threshold=7.301)
     emit({"phase": "cross", "engines": ["fused", "dense"], **cmp,
           "dense_wall_s": timing["wall_s"], "dense_step_s": timing["step_s"]})
     return dense
+
+
+class MvCollect(Collect):
+    """A ``Collect`` that also keeps the prepared scan and, per live cell, the
+    card's own r tile and omnibus S (device tensors, no copy), for the
+    float64 oracle after the run."""
+
+    def open(self, session) -> None:
+        super().open(session)
+        self.prepared = session.prepared
+        self.tiles: dict = {}
+
+    def write(self, cell) -> None:
+        super().write(cell)
+        if cell.view is not None:
+            out, m = cell.view._out, cell.view.m_batch
+            self.tiles[cell.lo] = (out["r"][:m], out["omnibus"][:m])
+
+
+def _omnibus_medians(omni, effects, n_markers: int) -> dict:
+    import numpy as np
+
+    planted = sorted({m for m, _, _ in effects})
+    null = np.setdiff1d(np.arange(n_markers), planted)
+    return {"planted_median_nlp": float(np.median(omni[planted])),
+            "null_median_nlp": float(np.median(omni[null]))}
+
+
+def phase_multivariate(tmp: str, study, cohort) -> Collect:
+    """``gwas scan --multivariate``: the scan cohort unblocked (the reference
+    refuses a blocked multivariate grid) on the dense engine, with the dense
+    p-value epilogue the omnibus needs.  Hits and per-trait winners are
+    byte-equal to phase ``cross``'s dense run; S holds against a float64
+    oracle on the card's own r (W from a float64 eigh of the same panel),
+    ``omnibus_nlp`` against scipy's float64 ``gammaincc``, and
+    ``n_traits_eff`` against float64 Li & Ji.  No kernel of this repo runs.
+    The reference's own omnibus check (planted median > 5, null < 1) runs on
+    its test cohort; at the scan cohort, where each planted marker moves one
+    trait of 2,048, the null median is checked and the planted one is
+    printed beside its noncentral chi-square prediction."""
+    import numpy as np
+    import scipy.special as sp
+    import scipy.stats as st
+    import torch
+
+    from repro_torch.api import GridSpec, Study
+    from repro_torch.core import multivariate as mv
+    from repro_torch.io import PlinkBed, synth
+    from repro_torch.io.plink import write_plink
+
+    grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=0)
+    out = os.path.join(tmp, "multivariate")
+    col, _, timing = _run(study, out, collect=MvCollect(), engine="dense", grid=grid,
+                          multivariate=True)
+    check(not any(timing["launches"].values()),
+          f"multivariate: kernels launched {timing['launches']}; the path runs none")
+    for name in ("hits.tsv", "per_trait_best.tsv"):
+        with open(os.path.join(tmp, "dense", name), "rb") as a, \
+                open(os.path.join(out, name), "rb") as b:
+            check(a.read() == b.read(), f"multivariate: {name} differs from the dense run's")
+    with open(os.path.join(out, "qc.tsv")) as f:
+        header = f.readline().split()
+    check(header[-1] == "omnibus_neglog10p", f"multivariate: qc.tsv header {header}")
+    prep = col.prepared
+    ctx = prep.ctx
+    n = study.n_samples
+    check(ctx.multivariate and ctx.whitening is not None
+          and ctx.whitening.device == prep.device, "multivariate: no whitening on the card")
+
+    # Gram + eigh of the full panel on the card, warm (prepare_s holds the first)
+    y = prep.panels.device_block(prep.trait_blocks[0])
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mv.whiten_panel(y)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+
+    # the float64 oracle, on the card, on the card's own r
+    y64 = y.double()
+    lam, vec = torch.linalg.eigh(y64.T @ y64 / n)
+    lam, vec = torch.flip(lam, (0,)), torch.flip(vec, (1,))
+    keep = lam > 1e-6 * lam[0]
+    w64 = vec[:, keep] * torch.rsqrt(lam[keep])[None, :]
+    lam_np = np.maximum(lam.cpu().numpy(), 0.0)
+    meff64 = float(np.sum((lam_np >= 1.0) + (lam_np - np.floor(lam_np))))
+    p = SCAN["n_traits"]
+    meff_tol = MV_TOL["meff_ulps_per_trait_level"] * p * math.log2(p) * 2.0 ** -24
+    check(abs(ctx.n_traits_eff - meff64) <= meff_tol,
+          f"multivariate: n_traits_eff {ctx.n_traits_eff} vs float64 {meff64}")
+    s_card, s_rel = [], 0.0
+    nc_planted = []
+    planted = {m: t for m, t, _ in cohort.effects}
+    for lo, (r, s) in sorted(col.tiles.items()):
+        s64 = n * torch.sum((r.double() @ w64) ** 2, dim=-1)
+        s_rel = max(s_rel, float(torch.max(torch.abs(s.double() - s64) / s64)))
+        s_card.append(s.cpu().numpy())
+        r_host = r.cpu().numpy()
+        nc_planted += [n * float(r_host[m - lo, t]) ** 2 for m, t in planted.items()
+                       if lo <= m < lo + r_host.shape[0]]
+    col.tiles = {}
+    check(s_rel <= MV_TOL["s_rel"], f"multivariate: S off the float64 oracle by {s_rel} (rel)")
+    s_all = np.concatenate(s_card).astype(np.float64)
+    omni = col.canonical()["omnibus_nlp"]
+    check(omni.shape == s_all.shape and bool(np.isfinite(omni).all()),
+          "multivariate: omnibus_nlp not finite or of the wrong shape")
+    k = ctx.n_traits_eff
+    with np.errstate(divide="ignore"):
+        exact = -np.log10(sp.gammaincc(k / 2.0, s_all / 2.0))
+    rtol, atol = MV_TOL["nlp"]
+    fin = np.isfinite(exact)
+    nlp_err = float(np.max(np.abs(omni[fin] - exact[fin])))
+    check(bool(np.all(np.abs(omni[fin] - exact[fin]) <= atol + rtol * exact[fin])),
+          f"multivariate: omnibus_nlp off scipy's float64 gammaincc by {nlp_err}")
+    check(bool(np.all(omni[~fin] > 300.0)), "multivariate: an underflowing lane below 300")
+    med = _omnibus_medians(omni, cohort.effects, s_all.shape[0])
+    check(med["null_median_nlp"] < 1.0, f"multivariate: null median {med['null_median_nlp']}")
+    check(med["planted_median_nlp"] > med["null_median_nlp"],
+          f"multivariate: planted median {med} not above the null's")
+    # noncentral chi-square at the planted markers' own N r^2 (each moves one
+    # trait; the panel is near-white, so the whitening keeps N r^2)
+    predicted = float(np.median(-np.log10(st.chi2.sf(st.ncx2.median(k, nc_planted), k))))
+
+    # the reference's own check, on its test cohort
+    small = synth.make_cohort(**MV_SMALL)
+    bed = write_plink(os.path.join(tmp, "mv_small"), small.dosages, sample_ids=small.sample_ids)
+    small_study = Study.from_arrays(PlinkBed(bed), small.phenotypes, small.covariates,
+                                    device=DEVICE)
+    small_col, _, small_timing = _run(small_study, None, engine="dense",
+                                      grid=GridSpec(batch_markers=256), multivariate=True)
+    check(not any(small_timing["launches"].values()), "multivariate/small: a kernel ran")
+    small_med = _omnibus_medians(small_col.canonical()["omnibus_nlp"], small.effects,
+                                 MV_SMALL["n_markers"])
+    check(small_med["planted_median_nlp"] > 5.0 and small_med["null_median_nlp"] < 1.0,
+          f"multivariate/small: omnibus medians {small_med}")
+
+    emit({"phase": "multivariate", **{k_: SCAN[k_] for k_ in
+                                      ("n_samples", "n_markers", "n_traits", "n_covariates",
+                                       "batch_markers")},
+          "trait_block": 0, "engine": "dense",
+          "whiten_s": statistics.median(runs), "whiten_s_runs": runs,
+          "n_traits_eff": ctx.n_traits_eff, "n_traits_eff_f64": meff64,
+          "n_traits_eff_tol": meff_tol,
+          **{k_: timing[k_] for k_ in ("prepare_s", "wall_s", "step_s", "extract_s",
+                                      "max_memory_allocated", "launches", "cells")},
+          "hits_and_best_bytes_equal_to_cross_dense": True,
+          "s_max_rel_err_vs_f64": s_rel, "s_tol_rel": MV_TOL["s_rel"],
+          "omnibus_nlp_max_abs_err_vs_scipy_f64": nlp_err, "omnibus_nlp_tol": MV_TOL["nlp"],
+          "underflowing_lanes": int((~fin).sum()), **med,
+          "predicted_planted_median_nlp": predicted,
+          "small": {**MV_SMALL, **small_med, "wall_s": small_timing["wall_s"]}})
+    return col
 
 
 def phase_identities(tmp: str, cohort) -> None:
@@ -718,11 +893,12 @@ class StreamAudit:
         for mod, name, real in reversed(self._undo):
             setattr(mod, name, real)
 
-    def check_slot_streams(self, label: str) -> dict:
+    def check_slot_streams(self, label: str, kernels_expected: bool = True) -> dict:
         """Every call from an executor slot's threads (its worker, tail and
         panel look-ahead, named by the slot's number) ran on one stream of
         one device, not that device's default stream, and no two slots
-        shared a stream; the slots' kernels were among the calls."""
+        shared a stream; the slots' kernels were among the calls (unless the
+        path runs none: then its copies and pulls are)."""
         import re
 
         import torch
@@ -741,45 +917,62 @@ class StreamAudit:
         check(len({p for pairs in slots.values() for p in pairs}) == len(slots),
               f"{label}: two slots shared a stream")
         kernels = sorted({c[0] for c in self.calls} - {"to_device", "_host"})
-        check(bool(kernels), f"{label}: no kernel launched")
+        check(bool(kernels) == kernels_expected,
+              f"{label}: kernel wrappers called: {kernels}")
         return {"calls": len(self.calls), "slots": {s: sorted(p)[0][0] for s, p in slots.items()},
                 "threads": sorted({c[1].rstrip("0123456789") for c in self.calls}),
                 "kernel_wrappers": kernels, "one_stream_per_slot": True,
                 "default_stream": False}
 
 
-def phase_executor(tmp: str, study, fused: Collect, dense: Collect) -> dict:
+def phase_executor(tmp: str, study, fused: Collect, dense: Collect,
+                   multivariate: Collect) -> dict:
     """The multi-device executor at the scan cell: ``shared-fs`` on one slot
-    (``cuda:0`` and its own stream), the fused engine three ways and the
-    dense engine once, each canonical-bitwise equal to its serial run on the
-    default stream, with its kernels launched once per cell from the slot's
-    stream."""
+    (``cuda:0`` and its own stream), the fused engine three ways, the dense
+    engine once and the dense multivariate screen once (unblocked), each
+    canonical-bitwise equal to its serial run on the default stream (the
+    omnibus track included), with its kernels launched once per cell from the
+    slot's stream (the multivariate path launches none)."""
     from repro_torch.api import ExecSpec, GridSpec
 
     grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
+    unblocked = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=0)
     runs = {
-        "fused": ("fused", dict()),
-        "fused_trait_major": ("fused", dict(placement="trait-major", lease_batches=1)),
-        "fused_unpipelined": ("fused", dict(slot_prefetch=0, autotune_lease=False)),
-        "dense": ("dense", dict()),
+        "fused": ("fused", dict(), dict(grid=grid)),
+        "fused_trait_major": ("fused", dict(placement="trait-major", lease_batches=1),
+                              dict(grid=grid)),
+        "fused_unpipelined": ("fused", dict(slot_prefetch=0, autotune_lease=False),
+                              dict(grid=grid)),
+        "dense": ("dense", dict(), dict(grid=grid)),
+        "dense_multivariate": ("dense", dict(), dict(grid=unblocked, multivariate=True)),
     }
-    serial = {"fused": fused.canonical(), "dense": dense.canonical()}
+    serial = {"fused": fused.canonical(), "dense": dense.canonical(),
+              "dense_multivariate": multivariate.canonical()}
     rows = {}
-    for name, (engine, ex) in runs.items():
+    for name, (engine, ex, plan_kw) in runs.items():
         with StreamAudit() as audit:
             col, _, timing = _run(
-                study, None, engine=engine, grid=grid,
+                study, None, engine=engine,
                 checkpoint_dir=os.path.join(tmp, f"ck_{name}"),
                 executor=ExecSpec(devices=1, backend="shared-fs", host_id="h0", **ex),
+                **plan_kw,
             )
         cells = timing["grid"][0] * timing["grid"][1]
         check(timing["live_cells"] == cells, f"executor/{name}: {timing['live_cells']} live "
               f"cells of {cells}")
-        kernels = ("gwas_dot", "compact_survivors") if engine == "fused" else ("compact_survivors",)
+        mv = plan_kw.get("multivariate", False)
+        kernels = (() if mv else ("gwas_dot", "compact_survivors") if engine == "fused"
+                   else ("compact_survivors",))
         for k in kernels:
             check(timing["launches"][k] == cells, f"executor/{name}: {k} launched "
                   f"{timing['launches'][k]} times, not once per cell ({cells})")
-        _bitwise({"serial": serial[engine], name: col.canonical()}, "serial", (name,))
+        if mv:
+            check(not any(timing["launches"].values()),
+                  f"executor/{name}: kernels launched {timing['launches']}")
+        base = "dense_multivariate" if mv else engine
+        canon = col.canonical()
+        check(("omnibus_nlp" in canon) == mv, f"executor/{name}: omnibus track")
+        _bitwise({"serial": serial[base], name: canon}, "serial", (name,))
         info = timing["executor"]
         rows[name] = {
             "engine": engine, "bitwise_vs_serial": True, "launches": timing["launches"],
@@ -788,7 +981,7 @@ def phase_executor(tmp: str, study, fused: Collect, dense: Collect) -> dict:
             "autotune": info["autotune"], "wait_share": info["autotune"]["wait_share"],
             "workers": info["workers"], "placement": info["placement"],
             "slot_prefetch": info["slot_prefetch"],
-            "streams": audit.check_slot_streams(name),
+            "streams": audit.check_slot_streams(name, kernels_expected=bool(kernels)),
         }
     # Control: the reference's order, in which a worker's last blocking
     # claim does not wait for its own tail first and so sleeps one lease
@@ -1328,20 +1521,23 @@ def phase_lmm_identities(tmp: str) -> dict:
     return launches["dense_audit"]
 
 
-def _cli(work: str, out: str, genotypes: str, files: dict, *flags) -> tuple[dict, set, float]:
-    """One ``repro_torch.launch.gwas scan`` subprocess; (summary, hit keys, s)."""
+def _gwas(work: str, *args) -> tuple[str, float]:
+    """One ``python -m repro_torch.launch.gwas`` subprocess; (stdout, s)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.gwas", "scan",
-         "--genotypes", genotypes, "--pheno", files["pheno"], "--covar", files["cov"],
-         "--out", os.path.join(work, out), "--batch-markers", "256", "--device", DEVICE,
-         *flags],
-        cwd=work, env=env, capture_output=True, text=True, timeout=600,
-    )
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.gwas", *args],
+                          cwd=work, env=env, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"CLI scan {flags} failed ({proc.returncode}):\n"
+    check(proc.returncode == 0, f"CLI {args[0]} {args[1:]} failed ({proc.returncode}):\n"
           f"{proc.stderr[-3000:]}")
+    return proc.stdout, wall
+
+
+def _cli(work: str, out: str, genotypes: str, files: dict, *flags) -> tuple[dict, set, float]:
+    """One ``repro_torch.launch.gwas scan`` subprocess; (summary, hit keys, s)."""
+    _, wall = _gwas(work, "scan", "--genotypes", genotypes, "--pheno", files["pheno"],
+                    "--covar", files["cov"], "--out", os.path.join(work, out),
+                    "--batch-markers", "256", "--device", DEVICE, *flags)
     with open(os.path.join(work, out, "summary.json")) as f:
         summary = json.load(f)
     with open(os.path.join(work, out, "hits.tsv")) as f:
@@ -1353,8 +1549,8 @@ def _cli(work: str, out: str, genotypes: str, files: dict, *flags) -> tuple[dict
 def phase_cli(tmp: str) -> None:
     import numpy as np
 
-    from repro_torch.core import kinship
-    from repro_torch.io import synth
+    from repro_torch.core import grm, kinship
+    from repro_torch.io import open_genotypes, synth
     from repro_torch.runtime.device import resolve_device
 
     work = os.path.join(tmp, "cli")
@@ -1365,9 +1561,11 @@ def phase_cli(tmp: str) -> None:
     split = synth.write_split_plink(cohort, os.path.join(work, "cohort"), n_shards=3)
     planted = {(cohort.marker_ids[m], f"trait{t}") for m, t, _ in cohort.effects}
     row = {"phase": "cli"}
+    ck = os.path.join(work, "ck")
     for name, genotypes, flags in (
         ("fused", files["bed"], ("--engine", "fused")),
         ("lmm", ",".join(split), ("--engine", "lmm", "--lmm-epilogue", "fused", "--loco")),
+        ("multivariate", files["bed"], ("--multivariate", "--checkpoint-dir", ck)),
     ):
         summary, found, wall = _cli(work, name, genotypes, files, *flags)
         check(planted <= found, f"CLI {name} missed planted effects {sorted(planted - found)}")
@@ -1380,6 +1578,49 @@ def phase_cli(tmp: str) -> None:
             check(summary["lmm"]["scopes"] == 3 and summary["lmm"]["loco"],
                   f"CLI lmm summary {summary['lmm']}")
             row[name]["lmm"] = summary["lmm"]
+        if name == "multivariate":
+            with open(os.path.join(work, name, "qc.tsv")) as f:
+                check(f.readline().split()[-1] == "omnibus_neglog10p",
+                      "CLI multivariate: qc.tsv has no omnibus column")
+                omni = np.array([float(line.split("\t")[3]) for line in f])
+            med = _omnibus_medians(omni, cohort.effects, omni.shape[0])
+            check(med["planted_median_nlp"] > 5.0 and med["null_median_nlp"] < 1.0,
+                  f"CLI multivariate: omnibus medians {med}")
+            row[name].update(med)
+    # merge the multivariate scan's checkpoint: the scan's own bytes
+    _, wall = _gwas(work, "merge", "--checkpoint-dir", ck, "--out", os.path.join(work, "merged"),
+                    "--genotypes", files["bed"], "--pheno", files["pheno"])
+    check(_tsv_bytes(os.path.join(work, "merged")) == _tsv_bytes(os.path.join(work, "multivariate")),
+          "CLI merge: TSVs differ from the scan's")
+    row["merge"] = {"wall_s": wall, "bytes_equal_to_scan": True}
+    report, wall = _gwas(work, "report", "--out", os.path.join(work, "multivariate"), "--top", "5")
+    top = [ln for ln in report.splitlines() if ln.startswith("  rs")]
+    check("== scan summary ==" in report and len(top) == 5, f"CLI report:\n{report}")
+    row["report"] = {"wall_s": wall, "top_rows": len(top)}
+    # the streamed GRM and its spectrum, against the same functions in process
+    grm_out = os.path.join(work, "grm.npz")
+    _, wall = _gwas(work, "grm", "--genotypes", ",".join(split), "--out", grm_out, "--loco",
+                    "--spectrum", "--batch-markers", "256", "--device", DEVICE)
+    want = grm.stream_grm(open_genotypes(",".join(split)), batch_markers=256, device=DEVICE)
+    k = want.full()
+    with np.load(grm_out) as z:
+        got = {key: z[key] for key in z.files}
+    # the spectrum on the CLI's own GRM: the same input to the same eigh
+    s_want, u_want = grm.grm_spectrum(got["k"], device=DEVICE)
+    check(sorted(got) == ["k", "loco_0", "loco_1", "loco_2", "s", "shard_boundaries", "u"],
+          f"CLI grm: keys {sorted(got)}")
+    grm_err = max(float(np.max(np.abs(got["k"] - k))),
+                  *(float(np.max(np.abs(got[f"loco_{i}"] - want.loco(i)))) for i in range(3)))
+    check(grm_err <= 1e-5, f"CLI grm: GRM off the in-process one by {grm_err}")
+    s_err = float(np.max(np.abs(got["s"] - s_want)))
+    check(s_err <= 1e-10 * float(s_want.max()), f"CLI grm: spectrum off by {s_err}")
+    rng_got = got["u"][:, got["s"] > 1e-8 * got["s"].max()]
+    rng_want = u_want[:, s_want > 1e-8 * s_want.max()]
+    check(rng_got.shape == rng_want.shape, "CLI grm: ranks differ")
+    proj_err = float(np.max(np.abs(rng_got @ rng_got.T - rng_want @ rng_want.T)))
+    check(proj_err <= 1e-8, f"CLI grm: range projector off by {proj_err}")
+    row["grm"] = {"wall_s": wall, "samples": int(k.shape[0]), "max_abs_err": grm_err,
+                  "spectrum_max_abs_err": s_err, "range_projector_max_abs_err": proj_err}
     # KING kinship products on the card against the CPU (integer counts in
     # float32: exact on both)
     rel = synth.make_cohort(n_samples=400, n_markers=2000, n_traits=2, n_related_pairs=5,
@@ -1437,11 +1678,12 @@ def main(argv: list[str]) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         study, cohort, fused, timing = phase_scan(tmp)
-        dense = phase_cross(study, fused)
+        dense = phase_cross(tmp, study, fused)
+        multivariate = phase_multivariate(tmp, study, cohort)
         phase_identities(tmp, cohort)
-        phase_executor(tmp, study, fused, dense)
+        phase_executor(tmp, study, fused, dense, multivariate)
         phase_multihost(tmp, study, cohort)
-        del study, cohort, fused, dense
+        del study, cohort, fused, dense, multivariate
         lmm_timing = phase_lmm_scan(tmp)
         torch.cuda.empty_cache()
         audit_launches = phase_lmm_identities(tmp)

@@ -292,11 +292,6 @@ class ScanPlan:
             raise NotImplementedError(
                 "sharding meshes arrive with the port's torch.distributed mesh slice"
             )
-        if config.multivariate:
-            raise NotImplementedError(
-                "the multivariate omnibus screen arrives with the port's "
-                "multivariate slice"
-            )
         self.study = study
         self.config = config
         self._prepared: PreparedScan | None = None
@@ -318,7 +313,15 @@ class ScanPlan:
         trait_blocks = TraitBlockPlanner(
             config.trait_block, quantum=config.block_p
         ).plan(study.n_traits)
+        if config.multivariate and len(trait_blocks) > 1:
+            raise ValueError(
+                "the multivariate omnibus screen needs the whole panel per "
+                "marker (it combines evidence across every trait); run it "
+                "unblocked (trait_block=0)"
+            )
 
+        n_traits_eff = float(study.n_traits)
+        whitening = None
         panels: PanelStore | None = None
         q = None
         if engine.uses_global_panel:
@@ -332,6 +335,15 @@ class ScanPlan:
                 max_resident=config.panel_resident_blocks,
             )
             n_covariates = int(q.shape[1]) - 1
+            if config.multivariate:
+                from repro_torch.core import multivariate as mv
+
+                # Unblocked by the check above: block 0 is the full panel,
+                # staged on the scan's device, where the P x P Gram product
+                # and its eigendecomposition run.
+                y_full = panels.device_block(trait_blocks[0])
+                whitening, eig = mv.whiten_panel(y_full)
+                n_traits_eff = float(mv.effective_tests(eig))
         else:
             cov = None if covariates is None else np.asarray(covariates)
             n_covariates = 0 if cov is None else (1 if cov.ndim == 1 else cov.shape[1])
@@ -359,6 +371,9 @@ class ScanPlan:
             block_n=config.block_n,
             block_p=config.block_p,
             q_basis=q,
+            multivariate=config.multivariate,
+            n_traits_eff=n_traits_eff,
+            whitening=whitening,
             keep=study.keep,
             excluded_samples=study.excluded_samples,
             trait_blocks=tuple(trait_blocks),

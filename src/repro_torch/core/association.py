@@ -29,6 +29,7 @@ __all__ = [
     "standardize_genotype_batch",
     "correlation",
     "assoc_from_standardized",
+    "assoc_batch",
     "plan_sparse_epilogue",
     "sparse_epilogue_outputs",
 ]
@@ -178,6 +179,46 @@ def assoc_from_standardized(
     else:
         nlp = torch.zeros_like(t)
     return AssocResult(r=r, t=t, neglog10p=nlp)
+
+
+def assoc_batch(
+    g_raw: torch.Tensor,
+    y_std: torch.Tensor,
+    *,
+    n_samples: int,
+    n_covariates: int,
+    options: AssocOptions = AssocOptions(),
+    q_basis: torch.Tensor | None = None,
+    missing_value: float = -9.0,
+) -> tuple[AssocResult, MarkerStats]:
+    """End-to-end batch path from raw dosages: standardize -> (optionally
+    FWL-residualize) -> correlate -> epilogue, on the inputs' device.
+
+    ``q_basis`` is required when ``options.dof_mode == "exact"``.
+    """
+    g_std, marker_stats = standardize_genotype_batch(g_raw, missing_value=missing_value)
+    if options.dof_mode == "exact":
+        if q_basis is None:
+            raise ValueError("exact mode requires the covariate basis q_basis")
+        from repro_torch.core.residualize import residualize_genotypes
+
+        g_std = residualize_genotypes(g_std, q_basis)
+    res = assoc_from_standardized(
+        g_std,
+        y_std,
+        n_samples=n_samples,
+        n_covariates=n_covariates,
+        options=options,
+    )
+    # Invalid (monomorphic / all-missing) markers: r=t=0, p=1.
+    mask = marker_stats.valid[:, None]
+    zero = torch.zeros((), dtype=res.r.dtype, device=res.r.device)
+    res = AssocResult(
+        r=torch.where(mask, res.r, zero),
+        t=torch.where(mask, res.t, zero),
+        neglog10p=torch.where(mask, res.neglog10p, zero),
+    )
+    return res, marker_stats
 
 
 # ----------------------------------------------------- sparse p-value epilogue

@@ -170,6 +170,8 @@ class EngineContext:
     block_p: int = 256
     q_basis: torch.Tensor | None = None
     multivariate: bool = False
+    n_traits_eff: float = 1.0
+    whitening: torch.Tensor | None = None
     keep: np.ndarray | None = None     # host-side sample mask (None: keep all)
     excluded_samples: int = 0
     trait_blocks: tuple[TraitBlock, ...] = ()
@@ -302,12 +304,14 @@ class EngineDeviceState:
         self.engine = engine
         if device is not None:
             # Steps close over context tensors (the covariate basis of the
-            # exact-dof residualization); place them on this slot's device
-            # before the step is built.  A copy moves bytes, never values.
+            # exact-dof residualization, the multivariate whitening); place
+            # them on this slot's device before the step is built.  A copy
+            # moves bytes, never values.
             device = torch.device(device)
             ctx = dataclasses.replace(
                 ctx, device=device,
                 q_basis=None if ctx.q_basis is None else ctx.q_basis.to(device),
+                whitening=None if ctx.whitening is None else ctx.whitening.to(device),
             )
         self.ctx = ctx
         self.device = ctx.device
@@ -420,10 +424,12 @@ def _dense_best_and_hits(nlp: torch.Tensor, t: torch.Tensor, hit_threshold: floa
     }
 
 
-def _resolve_sparse(sparse_epilogue, options, hit_threshold, dof, hit_capacity):
-    """The sparse epilogue needs a meaningful threshold (plan may refuse) and
-    an nlp-producing scan."""
-    if not sparse_epilogue or not options.compute_neglog10p:
+def _resolve_sparse(sparse_epilogue, options, hit_threshold, dof, hit_capacity,
+                    multivariate=False):
+    """The sparse epilogue needs a meaningful threshold (plan may refuse), an
+    nlp-producing scan, and no multivariate omnibus (that screen consumes
+    the full r tile in the step; its step keeps the dense epilogue)."""
+    if not sparse_epilogue or multivariate or not options.compute_neglog10p:
         return None
     return plan_sparse_epilogue(hit_threshold, dof, capacity=hit_capacity)
 
@@ -440,7 +446,11 @@ def build_dense_step(
     hit_threshold: float = 7.301,
     maf_min: float = 0.0,
     q_basis: torch.Tensor | None = None,
+    multivariate: bool = False,
+    n_traits_eff: float = 1.0,
+    whitening: torch.Tensor | None = None,
     trait_tile: int | None = None,
+    split_prolog: bool = True,
     sparse_epilogue: bool = False,
     hit_capacity: int = 4096,
     packed_input: bool = False,
@@ -457,12 +467,19 @@ def build_dense_step(
 
     The step is a once-per-marker-batch *prolog* (standardize + the
     exact-mode FWL residualization) memoized on the staged tensor's identity,
-    plus a per-cell *epilogue* (the panel GEMM + t/p).  ``sparse_epilogue``
-    switches the p-value epilogue to the threshold-compacted form
-    (``hit_idx``/``hit_r``/``hit_t`` + ``screen_count``).
+    plus a per-cell *epilogue* (the panel GEMM + t/p).  ``split_prolog=False``
+    runs the prolog on every call instead (no memo): the cell consumes the
+    same float32 ``g_std`` either way, so the outputs are bitwise equal.
+    ``sparse_epilogue`` switches the p-value epilogue to the threshold-
+    compacted form (``hit_idx``/``hit_r``/``hit_t`` + ``screen_count``).
+
+    ``multivariate`` adds the panel omnibus (``omnibus``, ``omnibus_nlp``:
+    ``S = N * ||r W||^2`` against chi^2 with ``n_traits_eff`` degrees of
+    freedom) on the masked r tile, and keeps the dense p-value epilogue.
     """
     dof = options.dof(n_samples, n_covariates)
-    sparse = _resolve_sparse(sparse_epilogue, options, hit_threshold, dof, hit_capacity)
+    sparse = _resolve_sparse(sparse_epilogue, options, hit_threshold, dof, hit_capacity,
+                             multivariate=multivariate)
     cell_options = (
         dataclasses.replace(options, sparse_epilogue=True) if sparse is not None
         else options
@@ -496,7 +513,16 @@ def build_dense_step(
             nlp = _masked(res.neglog10p, mask)
             out["nlp"] = nlp
             out.update(_dense_best_and_hits(nlp, t, hit_threshold))
+        if multivariate:
+            from repro_torch.core import multivariate as mv
+
+            out["omnibus"], out["omnibus_nlp"] = mv.omnibus_chi2(
+                out["r"], n_samples, n_traits_eff, whitening=whitening
+            )
         return out
+
+    if not split_prolog:
+        return lambda g_raw, y_std: cell(*prolog(g_raw), y_std)
 
     # One-slot memo keyed on the staged genotype tensor's identity: the
     # executor passes the same tensor for every trait block of a batch, and a
@@ -706,15 +732,9 @@ def build_lmm_step(
 
 @register_engine("dense")
 class DenseEngine(ScanEngine):
-    """PyTorch GEMM over float dosages — the paper-faithful engine and the
-    port's cross-check of the fused kernel."""
-
-    def validate(self, ctx: EngineContext) -> None:
-        if ctx.multivariate:
-            raise NotImplementedError(
-                "the multivariate omnibus screen arrives with the port's "
-                "multivariate slice"
-            )
+    """PyTorch GEMM over float dosages — the paper-faithful engine, the
+    port's cross-check of the fused kernel, and the engine of the
+    multivariate screen."""
 
     def build_step(self, ctx: EngineContext) -> Callable[..., dict[str, torch.Tensor]]:
         return build_dense_step(
@@ -724,6 +744,9 @@ class DenseEngine(ScanEngine):
             hit_threshold=ctx.hit_threshold,
             maf_min=ctx.maf_min,
             q_basis=ctx.q_basis,
+            multivariate=ctx.multivariate,
+            n_traits_eff=ctx.n_traits_eff,
+            whitening=ctx.whitening,
             trait_tile=ctx.block_p,
             sparse_epilogue=ctx.sparse_epilogue,
             hit_capacity=ctx.hit_capacity,
@@ -751,7 +774,13 @@ class FusedEngine(ScanEngine):
         if ctx.mode != "mp":
             raise ValueError("fused engine supports marker x phenotype sharding only")
         if ctx.multivariate:
-            raise ValueError("the multivariate screen runs on the dense engine")
+            # The reference's fused engine never computes the omnibus, yet
+            # its sinks write an all-zero omnibus track for the flag; the
+            # port refuses instead of writing that column.
+            raise ValueError(
+                "the multivariate omnibus screen runs on the dense engine "
+                "(--engine dense); the fused engine does not compute it"
+            )
 
     def build_step(self, ctx: EngineContext) -> Callable[..., dict[str, torch.Tensor]]:
         return build_fused_step(

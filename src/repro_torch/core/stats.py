@@ -20,6 +20,9 @@ Numerical notes
     i.e. ``t^2 <= 3 nu / (nu + 2)``), as Numerical Recipes' ``betai`` does,
     and ``betaln(1/2, b)`` from ``lgamma`` in float64.
   - bulk, ``nu > 4096``: Edgeworth-corrected normal tail.
+* The chi-square tail of the multivariate omnibus (``neglog10_sf_chi2``)
+  takes ``torch.special.gammaincc`` in its bulk and the log-space ``gcf``
+  continued fraction where the survival function underflows.
 """
 from __future__ import annotations
 
@@ -32,10 +35,14 @@ import torch
 
 __all__ = [
     "t_from_r",
+    "chi2_from_r",
     "neglog10_p_from_t",
+    "neglog10_p_from_r",
+    "neglog10_sf_chi2",
     "t2_screen_threshold",
     "refine_neglog10p",
     "REFINE_WIDTH",
+    "bh_qvalues",
     "genomic_control_lambda",
     "LOG10E",
 ]
@@ -55,6 +62,13 @@ def t_from_r(r: torch.Tensor, dof: float, *, eps: float = 1e-12) -> torch.Tensor
     """
     denom = torch.clamp(1.0 - r * r, min=eps)
     return r * torch.sqrt(torch.tensor(float(dof), dtype=r.dtype, device=r.device) / denom)
+
+
+def chi2_from_r(r: torch.Tensor, n_eff: float) -> torch.Tensor:
+    """Large-sample score statistic ``N * r^2 ~ chi^2_1`` (used by the
+    multivariate omnibus screen where per-trait dof corrections wash out)."""
+    r = torch.as_tensor(r)
+    return torch.tensor(float(n_eff), dtype=r.dtype, device=r.device) * (r * r)
 
 
 def _tiny_floor(v: torch.Tensor) -> torch.Tensor:
@@ -177,6 +191,12 @@ def neglog10_p_from_t(t, dof: float) -> torch.Tensor:
     return torch.clamp(-LOG10E * log_p, min=0.0)
 
 
+def neglog10_p_from_r(r, dof: float) -> torch.Tensor:
+    """Fused convenience path ``r -> t -> -log10 p``."""
+    r = torch.as_tensor(r, dtype=torch.float32)
+    return neglog10_p_from_t(t_from_r(r, dof), dof)
+
+
 # ------------------------------------------------- sparse-epilogue screening
 #
 # For fixed dof, -log10 p is strictly increasing in t^2.  ``neglog10_p_from_t``
@@ -296,6 +316,71 @@ def _refine(t_values: np.ndarray, dof: float, width: int | None) -> np.ndarray:
 
 
 _REFINE_GROUP = 16384
+
+
+def _log_gammaincc_cf(a: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``log( Gamma(a, z) / Gamma(a) )`` via the NR ``gcf`` continued
+    fraction, valid (and fast) for ``z > a + 1``.  Log-space: never
+    underflows.  Fixed ``_CF_ITERS`` trips, elementwise."""
+    b0 = z + 1.0 - a
+    c = torch.full_like(z, 1.0 / _FPMIN)
+    d = 1.0 / _tiny_floor(b0)
+    h = d
+    for i in range(_CF_ITERS):
+        i_f = float(i) + 1.0
+        an = -i_f * (i_f - a)
+        b0 = b0 + 2.0
+        d = 1.0 / _tiny_floor(an * d + b0)
+        c = _tiny_floor(b0 + an / c)
+        h = h * d * c
+    return -z + a * torch.log(torch.clamp(z, min=1e-38)) - torch.lgamma(a) + torch.log(
+        torch.clamp(h, min=_FPMIN)
+    )
+
+
+def neglog10_sf_chi2(stat, k) -> torch.Tensor:
+    """``-log10 P(chi^2_k >= stat)``, stable into the deep tail.
+
+    Bulk lanes (sf not near underflow) use ``gammaincc`` directly; tail lanes
+    (``z > a+1`` and sf tiny) use the log-space ``gcf`` continued fraction.
+    ``k`` is a scalar or a tensor broadcastable to ``stat``; both are
+    evaluated in float32 on ``stat``'s device.
+    """
+    s = torch.as_tensor(stat, dtype=torch.float32)
+    a = torch.as_tensor(k, dtype=torch.float32, device=s.device) * 0.5 * torch.ones_like(s)
+    half = s * 0.5
+    direct = torch.special.gammaincc(a, torch.clamp(half, min=0.0))
+    log_direct = torch.log(torch.clamp(direct, min=1e-38))
+    z_cf = torch.maximum(half, a + 1.001)  # clamp unused lanes into validity
+    log_tail = _log_gammaincc_cf(a, z_cf)
+    use_tail = (half > a + 1.0) & (direct < 1e-6)
+    log_sf = torch.where(use_tail, log_tail, log_direct)
+    return torch.clamp(-LOG10E * log_sf, min=0.0)
+
+
+def bh_qvalues(neglog10p) -> torch.Tensor:
+    """Benjamini-Hochberg q-values from a flat vector of ``-log10 p``.
+
+    Monotone step-up in log space: sort ascending by p (descending by
+    ``-log10 p``, a stable sort, so tied p keep their input order), apply
+    ``q_i = min_{j >= i} p_j * m / j``.  Returns q as ``-log10 q`` in the
+    original order.
+    """
+    x = torch.as_tensor(neglog10p)
+    nlp = x.reshape(-1)
+    m = nlp.shape[0]
+    order = torch.argsort(-nlp, stable=True)  # most significant first
+    nlp_sorted = nlp[order]
+    ranks = torch.arange(1, m + 1, dtype=nlp.dtype, device=nlp.device)
+    # -log10(p * m / rank) = nlp - log10(m) + log10(rank)
+    log_m = torch.log10(torch.tensor(float(m), dtype=nlp.dtype, device=nlp.device))
+    nlq_raw = nlp_sorted - log_m + torch.log10(ranks)
+    # enforce monotone non-increasing significance via reverse cummax
+    nlq_sorted = torch.flip(torch.cummax(torch.flip(nlq_raw, (0,)), 0).values, (0,))
+    nlq_sorted = torch.clamp(nlq_sorted, min=0.0)
+    out = torch.empty_like(nlq_sorted)
+    out[order] = nlq_sorted
+    return out.reshape(x.shape)
 
 
 def genomic_control_lambda(t_stats) -> torch.Tensor:

@@ -1,18 +1,31 @@
-"""TorchGWAS-equivalent command line for the PyTorch/CUDA port: the ``scan``
-subcommand over ``repro_torch.api``, with the reference CLI's flags and
-output schema plus ``--device``.
+"""TorchGWAS-equivalent command line for the PyTorch/CUDA port: a thin
+subcommand shell over ``repro_torch.api``, with the reference CLI's flags
+and output schema plus ``--device``.
 
     python -m repro_torch.launch.gwas scan \
         --genotypes cohort.bed --pheno panel.tsv --covar covars.tsv \
-        --out results/ [--engine fused] [--device cpu] [--writer tsv,npz]
+        --out results/ [--engine fused] [--multivariate] [--device cpu] \
+        [--writer tsv,npz]
+
+    python -m repro_torch.launch.gwas grm \
+        --genotypes 'cohort_chr*.bed' --out results/grm.npz [--loco] \
+        [--spectrum] [--device cpu]
+
+    python -m repro_torch.launch.gwas merge \
+        --checkpoint-dir ck/ --out results/ [--genotypes ... --pheno ...]
+
+    python -m repro_torch.launch.gwas report --out results/ [--top 20]
 
 ``scan`` binds a Study, plans the grid, and streams the session's events
 through result writers — hits land in sorted ``hits.tsv`` batch by batch,
 per-trait best and per-marker QC follow at close, and ``summary.json``
-records the run.  The scan runs on the CUDA card unless ``--device cpu``
-is given.  The reference's ``grm``, ``merge``, ``report`` and ``serve``
-subcommands are not ported yet.  The flags-only invocation (no subcommand)
-means ``scan``.
+records the run.  ``grm`` runs the streamed GRM pass standalone; ``merge``
+turns a committed checkpoint directory into final outputs without
+recomputing anything; ``report`` pretty-prints a results directory.
+``scan`` and ``grm`` run on the CUDA card unless ``--device cpu`` is given;
+``merge`` and ``report`` only read files on the host.  The reference's
+``serve`` subcommand is not ported yet.  The flags-only invocation (no
+subcommand) means ``scan``.
 """
 from __future__ import annotations
 
@@ -26,10 +39,11 @@ import numpy as np
 
 from repro_torch.core.association import AssocOptions
 from repro_torch.core.engines import available_engines
+from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.workqueue import available_backends
 
-SUBCOMMANDS = ("scan",)
-NOT_PORTED = ("grm", "merge", "report", "serve")
+SUBCOMMANDS = ("scan", "grm", "merge", "report")
+NOT_PORTED = ("serve",)
 
 
 # ------------------------------------------------------------------- scan
@@ -291,6 +305,177 @@ def cmd_scan(argv) -> None:
         print(f"hits: {wsum['hits_tsv']}")
 
 
+# -------------------------------------------------------------------- grm
+
+
+def cmd_grm(argv) -> None:
+    from repro_torch.core.grm import grm_spectrum, spectrum_fingerprint, stream_grm
+    from repro_torch.io import open_genotypes
+
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.gwas grm",
+        description="Streamed GRM pass, standalone: one pass over the "
+                    "genotype stream, never materializing dosages.",
+    )
+    ap.add_argument("--genotypes", required=True)
+    ap.add_argument("--out", required=True, help="output .npz path")
+    ap.add_argument("--method", default="std", choices=["std", "centered"])
+    ap.add_argument("--batch-markers", type=int, default=4096)
+    ap.add_argument("--maf-min", type=float, default=0.0)
+    ap.add_argument("--io-workers", type=int, default=2)
+    ap.add_argument("--loco", action="store_true",
+                    help="also store each leave-one-chromosome-out GRM "
+                         "(needs a multi-file fileset)")
+    ap.add_argument("--spectrum", action="store_true",
+                    help="also eigendecompose and store (s, u)")
+    ap.add_argument("--genotype-staging", default="auto",
+                    choices=["auto", "packed", "dense"],
+                    help="H2D currency of the GRM pass (see scan --help)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the block products and the eigendecomposition "
+                         "run: cuda (default; an error when no card is "
+                         "present), cuda:<i>, or cpu")
+    args = ap.parse_args(argv)
+
+    source = open_genotypes(args.genotypes)
+    t0 = time.time()
+    grm = stream_grm(
+        source, batch_markers=args.batch_markers, method=args.method,
+        maf_min=args.maf_min, io_workers=args.io_workers,
+        staging=args.genotype_staging, device=args.device,
+    )
+    k = grm.full()
+    arrays: dict[str, np.ndarray] = {
+        "k": k,
+        "shard_boundaries": np.asarray(
+            getattr(source, "shard_boundaries", (0, source.n_markers))
+        ),
+    }
+    if args.loco:
+        if grm.n_shards < 2:
+            raise SystemExit("--loco needs a per-chromosome fileset (>= 2 shards)")
+        for sid in range(grm.n_shards):
+            arrays[f"loco_{sid}"] = grm.loco(sid)
+    spec_hash = None
+    if args.spectrum:
+        s, u = grm_spectrum(k, device=args.device)
+        arrays["s"], arrays["u"] = s, u
+        spec_hash = spectrum_fingerprint({-1: s})
+    out_dir = os.path.dirname(args.out)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    tmp = args.out + ".tmp.npz"
+    np.savez_compressed(tmp, **arrays)
+    os.replace(tmp, args.out)
+    summary = {
+        "samples": int(k.shape[0]),
+        "markers": source.n_markers,
+        "method": args.method,
+        "loco_scopes": grm.n_shards if args.loco else 0,
+        **({"spectrum_hash": spec_hash} if spec_hash else {}),
+        "wall_s": time.time() - t0,
+        "device": str(resolve_device(args.device)),
+        "out": args.out,
+    }
+    print(json.dumps(summary, indent=1))
+
+
+# ------------------------------------------------------------------ merge
+
+
+def cmd_merge(argv) -> None:
+    from repro_torch.api import get_writer
+    from repro_torch.api.session import CheckpointReplay
+
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.gwas merge",
+        description="Fold a committed checkpoint directory into final "
+                    "outputs without recomputing any grid cell (host only).",
+    )
+    ap.add_argument("--checkpoint-dir", required=True)
+    ap.add_argument("--out", required=True, help="output directory")
+    ap.add_argument("--writer", default="tsv")
+    ap.add_argument("--genotypes", default=None,
+                    help="optional: resolve marker names for the TSVs")
+    ap.add_argument("--pheno", default=None,
+                    help="optional: resolve trait names for the TSVs")
+    args = ap.parse_args(argv)
+
+    marker_ids = trait_names = None
+    if args.genotypes:
+        from repro_torch.io import open_genotypes
+
+        marker_ids = open_genotypes(args.genotypes).marker_ids
+    if args.pheno:
+        from repro_torch.io import read_table
+
+        trait_names = tuple(read_table(args.pheno).names)
+    replay = CheckpointReplay(
+        args.checkpoint_dir, marker_ids=marker_ids, trait_names=trait_names
+    )
+    if not replay.complete:
+        done = len(list(replay.checkpoint.completed_cells()))
+        total = replay.n_batches * replay.n_trait_blocks
+        print(f"warning: checkpoint is partial ({done}/{total} cells); "
+              "merging what is committed", file=sys.stderr)
+    os.makedirs(args.out, exist_ok=True)
+    writers = [get_writer(n)(args.out) for n in args.writer.split(",") if n]
+    wsum = replay.stream_to(*writers)
+    summary = {
+        "markers": replay.n_markers,
+        "traits": replay.n_traits,
+        "grid_cells": replay.n_batches * replay.n_trait_blocks,
+        "merged_cells": len(list(replay.checkpoint.completed_cells())),
+        "complete": replay.complete,
+        "hits": int(wsum.get("hits", 0)),
+        "lambda_gc": wsum.get("lambda_gc"),
+        "writers": [w.name for w in writers],
+    }
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary, indent=1))
+
+
+# ----------------------------------------------------------------- report
+
+
+def cmd_report(argv) -> None:
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.gwas report",
+        description="Pretty-print a results directory (summary + top hits).",
+    )
+    ap.add_argument("--out", required=True, help="results directory to read")
+    ap.add_argument("--top", type=int, default=20)
+    args = ap.parse_args(argv)
+
+    spath = os.path.join(args.out, "summary.json")
+    if os.path.exists(spath):
+        with open(spath) as f:
+            summary = json.load(f)
+        print("== scan summary ==")
+        for k in ("markers", "samples", "traits", "hits", "lambda_gc",
+                  "engine", "dof", "wall_s"):
+            if k in summary and summary[k] is not None:
+                v = summary[k]
+                print(f"  {k:<12} {v:.4g}" if isinstance(v, float) else f"  {k:<12} {v}")
+        if "lmm" in summary:
+            print(f"  lmm          scopes={summary['lmm'].get('scopes')} "
+                  f"loco={summary['lmm'].get('loco')}")
+    hits_path = os.path.join(args.out, "hits.tsv")
+    if not os.path.exists(hits_path):
+        raise SystemExit(f"no hits.tsv under {args.out}")
+    rows = []
+    with open(hits_path) as f:
+        f.readline()  # header
+        for line in f:
+            rows.append(line.rstrip("\n").split("\t"))
+    rows.sort(key=lambda r: -float(r[4]))
+    print(f"\n== top {min(args.top, len(rows))} of {len(rows)} hits ==")
+    print(f"  {'marker':<14} {'trait':<12} {'r':>8} {'t':>9} {'-log10p':>9}")
+    for r in rows[: args.top]:
+        print(f"  {r[0]:<14} {r[1]:<12} {r[2]:>8} {r[3]:>9} {r[4]:>9}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -303,7 +488,13 @@ def main(argv=None) -> None:
         )
     try:
         if argv and argv[0] in SUBCOMMANDS:
-            return cmd_scan(argv[1:])
+            cmd, rest = argv[0], argv[1:]
+            return {
+                "scan": cmd_scan,
+                "grm": cmd_grm,
+                "merge": cmd_merge,
+                "report": cmd_report,
+            }[cmd](rest)
         return cmd_scan(argv)
     except BrokenPipeError:
         os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
