@@ -72,19 +72,40 @@ Phases, each printing one JSON line:
                   computing at least one cell; then host A is SIGKILLed after
                   its first committed cell and host B, with a 2 s lease TTL,
                   reclaims A's leases and writes the same bytes
+  serve           the serve layer (``ServeHost(devices=1)`` in process) on
+                  the scan cohort, resident on the fused engine with scan's
+                  plan and warmed at admission; three concurrent requests:
+                  window queries [0, 4096) (2 cells) and [3000, 5000) (4
+                  cells) and an upload of the study's own panel (4 cells).
+                  The upload's three tables are byte-equal to scan's, each
+                  window's to an offline ``ScanPlan.run(marker_window=)``,
+                  ``covered`` equal to its ``window_covered``; gwas_dot and
+                  the t-mode compaction launched once per served cell; a
+                  device-state cache hit; then one more window through
+                  ``ServeServer``/``ServeClient`` over HTTP (the same
+                  hits.tsv bytes), ``POST /shutdown``, nothing pinned and no
+                  serve thread left
   lmm_identities  N=4,096, M=2,048 in 2 PLINK shards, P=512, REML and LOCO:
                   fused sparse == fused dense-audit (the tstat kernel),
                   blocked == unblocked, packed == dense staging, and the
                   executor on one slot under shared-fs, bitwise (the last
                   launching the screen once per cell); the fused epilogue vs
                   the dense one at the oracle tolerances
+  serve_lmm       that cohort resident in a ``ServeHost`` (fused epilogue,
+                  REML at warm-up): one window query across the shards,
+                  byte-equal to its offline windowed scan, the screen kernel
+                  launched once per served cell
   cli             ``python -m repro_torch.launch.gwas scan`` with
                   ``--engine fused``, ``--engine lmm --lmm-epilogue fused
                   --loco`` on a split fileset, and ``--multivariate`` with a
                   checkpoint, on a small cohort; ``merge`` of that checkpoint
                   (the scan's bytes), ``report``, and ``grm --loco --spectrum``
                   against the in-process streamed GRM and spectrum; KING
-                  kinship on the card vs the CPU
+                  kinship on the card vs the CPU; ``gwas serve --ready-file``
+                  as a subprocess (fused, the scan's flags): a study admitted
+                  over HTTP, a panel upload equal to the CLI scan's tables
+                  and a window query equal to its rows, then ``POST
+                  /shutdown`` and exit 0
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then come a ``kernels`` JSON line, the ``nvidia-smi`` line, and as
@@ -174,6 +195,12 @@ LMM_EPILOGUE_TOL = (0.0, (0.0, 1e-4), (0.0, 1e-3))
 # the two-host shared-fs run: the scan cohort in batches of 1,024 markers and
 # blocks of 1,024 traits (16 cells); host A's lease TTL when it is killed
 MULTIHOST = dict(batch_markers=1024, trait_block=1024, kill_lease_ttl=2.0)
+# the serve phase's marker windows on the scan cohort's 2 batches of 4,096:
+# (a) inside batch 0, (b) across the boundary (widens to both batches); and
+# the lmm study's window, across the boundary of its two shards at marker 683
+# (two LOCO scopes, batches [0, 683) and [683, 1707))
+SERVE_WINDOWS = ((0, 4096), (3000, 5000))
+SERVE_LMM_WINDOW = (600, 800)
 TSTAT_SHAPES = (("cell", (4096, 1024)), ("ragged", (1000, 300)))
 TSTAT_CAPACITY = 4096
 # elements per tile of the compaction kernel (csrc/tstat.cu); one 8-byte
@@ -1189,6 +1216,168 @@ def phase_multihost(tmp: str, study, cohort) -> dict:
     return row
 
 
+def _serve_done(host, rid: str) -> dict:
+    info = host.wait(rid, timeout=600)
+    check(info["status"] == "done", f"serve request {rid}: {info['status']}: {info['error']}")
+    return info
+
+
+def _offline_window(study, out: str, window, **plan_kwargs) -> tuple:
+    """An offline windowed scan of ``study`` into ``out``: (covered, bytes)."""
+    from repro_torch.api import TsvWriter
+
+    session = study.plan(device=DEVICE, **plan_kwargs).run(resume=False, marker_window=window)
+    session.stream_to(TsvWriter(out))
+    return session.window_covered, _tsv_bytes(out)
+
+
+def _serve_threads() -> list:
+    import threading
+
+    return [t.name for t in threading.enumerate() if t.name.startswith("serve-")]
+
+
+def phase_serve(tmp: str, study) -> dict:
+    """The serve layer on the scan cohort at full width, through the entry
+    points a user calls: a resident study, three concurrent requests and an
+    HTTP round trip, every served table byte-equal to its offline scan."""
+    import torch
+
+    from repro_torch.api import GridSpec
+    from repro_torch.serve import ServeClient, ServeHost, ServeServer
+
+    work = os.path.join(tmp, "serve")
+    os.makedirs(work)
+    plan_kwargs = dict(engine="fused", grid=GridSpec(batch_markers=SCAN["batch_markers"],
+                                                     trait_block=SCAN["trait_block"]))
+    offline = {w: _offline_window(study, os.path.join(work, f"offline_{w[0]}_{w[1]}"), w,
+                                  **plan_kwargs)
+               for w in SERVE_WINDOWS}
+    scan_bytes = _tsv_bytes(os.path.join(tmp, "fused"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host = ServeHost(devices=1, out_root=os.path.join(work, "served"), device=DEVICE)
+    server = None
+    try:
+        host.admit_study("scan", study, **plan_kwargs)
+        boot = host.warm_study("scan")
+        reset_launches()
+        t0 = time.perf_counter()
+        rids = {"c": host.submit_panel("scan", study.phenotypes, list(study.trait_names))}
+        rids["a"] = host.submit_window("scan", *SERVE_WINDOWS[0])
+        rids["b"] = host.submit_window("scan", *SERVE_WINDOWS[1])
+        # each request's finish, seconds after (c) was submitted
+        finished: dict = {}
+        deadline = time.monotonic() + 600
+        while len(finished) < len(rids) and time.monotonic() < deadline:
+            for name, rid in rids.items():
+                if name not in finished and host.request_info(rid)["status"] in ("done",
+                                                                                  "failed"):
+                    finished[name] = time.perf_counter() - t0
+            time.sleep(0.005)
+        infos = {name: _serve_done(host, rid) for name, rid in rids.items()}
+        launches = read_launches()
+        requests, cells = {}, 0
+        for name, window in (("a", SERVE_WINDOWS[0]), ("b", SERVE_WINDOWS[1]), ("c", None)):
+            info = infos[name]
+            got = _tsv_bytes(os.path.dirname(host.result_path(rids[name], "hits.tsv")))
+            if window is None:
+                check(got == scan_bytes, "serve: the uploaded panel's tables differ from scan's")
+            else:
+                covered, want = offline[window]
+                check(tuple(info["covered"]) == covered,
+                      f"serve: window {window} covered {info['covered']}, offline {covered}")
+                check(got == want, f"serve: window {window}'s tables differ from the offline run")
+            n = info["metrics"]["live_cells"]
+            cells += n
+            requests[name] = {"kind": "window" if window else "panel", "window": window,
+                              "covered": info["covered"], "wall_s": info["wall_s"],
+                              "finished_s": finished[name], "cells": n, "bytes_equal": True,
+                              **{k: info["metrics"][k]
+                                 for k in ("decode_s", "stage_s", "step_s", "extract_s")}}
+        check(cells == 10, f"serve: the three requests computed {cells} cells, not 10")
+        for kernel in ("gwas_dot", "compact_survivors"):
+            check(launches[kernel] == cells,
+                  f"serve launched {kernel} {launches[kernel]} times, not once per cell ({cells})")
+        summary = host.metrics_summary()
+        caches = summary["serve"]["caches"]
+        check(caches["device_state"]["hits"] >= 1, f"serve: no device-state cache hit {caches}")
+        peak = torch.cuda.max_memory_allocated()
+        # the HTTP round trip: the same window as (a), the same bytes
+        server = ServeServer(host).start()
+        client = ServeClient(*server.address, timeout=600.0)
+        t1 = time.perf_counter()
+        wid = client.scan_window("scan", *SERVE_WINDOWS[0])
+        client.wait(wid, timeout=600)
+        http = {"wall_s": time.perf_counter() - t1}
+        check(client.fetch(wid, "hits.tsv") == _tsv_bytes(
+            os.path.dirname(host.result_path(rids["a"], "hits.tsv")))["hits.tsv"],
+              "serve: hits.tsv over HTTP differs from request (a)'s")
+        http["hits_bytes_equal"] = True
+        check(client.shutdown() == {"ok": True}, "serve: POST /shutdown refused")
+        server.wait()
+    finally:
+        if server is not None:
+            server.shutdown()
+        host.shutdown()
+    leftover = _serve_threads()
+    check(host.registry.n_pinned == 0, f"serve: {host.registry.n_pinned} slots pinned")
+    check(not leftover, f"serve: threads alive after shutdown: {leftover}")
+    latency = {kind: {k: v[k] for k in ("n", "p50_s", "p95_s")}
+               for kind, v in summary["serve"]["latency_by_kind"].items()}
+    row = {"phase": "serve", "prepare_s": boot["prepare_s"], "requests": requests,
+           "finish_order": sorted(finished, key=finished.get),
+           "a_before_c": finished["a"] < finished["c"], "latency_by_kind": latency,
+           "device_state_cache": {k: caches["device_state"][k]
+                                  for k in ("hits", "misses", "evictions")},
+           "panel_cache": caches["panel"], "launches": launches,
+           "max_memory_allocated": peak, "http": http, "n_pinned_after": 0,
+           "serve_threads_after": leftover}
+    emit(row)
+    return row
+
+
+def phase_serve_lmm(tmp: str, study, plan_kwargs: dict) -> dict:
+    """A resident lmm study (REML at warm-up) answers one window query,
+    byte-equal to its offline windowed scan, one screen launch per cell.
+    The offline scan runs on the resident plan's prepared state through the
+    serial executor's own slot: a second REML prepare would double the
+    phase's cost, and the ``lmm_identities`` runs already hold separate
+    prepares bitwise equal."""
+    from repro_torch.api import TsvWriter
+    from repro_torch.serve import ServeHost
+
+    work = os.path.join(tmp, "serve_lmm")
+    os.makedirs(work)
+    window = SERVE_LMM_WINDOW
+    host = ServeHost(devices=1, out_root=os.path.join(work, "served"), device=DEVICE)
+    try:
+        host.admit_study("lmm", study, **plan_kwargs)
+        boot = host.warm_study("lmm")
+        offline = host.registry.resident("lmm").plan().run(resume=False, marker_window=window)
+        offline.stream_to(TsvWriter(os.path.join(work, "offline")))
+        covered, want = offline.window_covered, _tsv_bytes(os.path.join(work, "offline"))
+        reset_launches()
+        info = _serve_done(host, host.submit_window("lmm", *window))
+        launches = read_launches()
+        got = _tsv_bytes(os.path.dirname(host.result_path(info["request"], "hits.tsv")))
+    finally:
+        host.shutdown()
+    cells = info["metrics"]["live_cells"]
+    check(tuple(info["covered"]) == covered,
+          f"serve_lmm: covered {info['covered']}, offline {covered}")
+    check(got == want, "serve_lmm: the served tables differ from the offline windowed scan")
+    check(launches["screen_compact"] == cells and cells > 0,
+          f"serve_lmm launched the screen {launches['screen_compact']} times, not once per "
+          f"cell ({cells})")
+    check(host.registry.n_pinned == 0 and not _serve_threads(), "serve_lmm: not shut down")
+    row = {"phase": "serve_lmm", "window": window, "covered": info["covered"], "cells": cells,
+           "prepare_s": boot["prepare_s"], "wall_s": info["wall_s"], "launches": launches,
+           "bytes_equal": True}
+    emit(row)
+    return row
+
+
 def _bitwise(canon: dict, base_name: str, others) -> dict:
     """Every emitted array of each run in ``others`` equals ``base_name``'s,
     bit for bit."""
@@ -1518,6 +1707,7 @@ def phase_lmm_identities(tmp: str) -> dict:
                    tol=LMM_EPILOGUE_TOL)
     emit({"phase": "lmm_identities", **cfg, "hits": int(len(canon["sparse"]["hits"])),
           **result, "fused_vs_dense_epilogue": cmp, "launches": launches, "runs": info})
+    phase_serve_lmm(tmp, study, dict(engine="lmm", **runs["sparse"]))
     return launches["dense_audit"]
 
 
@@ -1544,6 +1734,76 @@ def _cli(work: str, out: str, genotypes: str, files: dict, *flags) -> tuple[dict
         next(f)
         found = {tuple(line.split("\t")[:2]) for line in f}
     return summary, found, wall
+
+
+def _marker_rows(path: str, lo: int, hi: int) -> list:
+    """A TSV's data rows whose marker (the synthetic ``rs%08d`` id, first
+    column) lies in ``[lo, hi)``, in file order."""
+    with open(path) as f:
+        next(f)
+        return [line for line in f if lo <= int(line.split("\t", 1)[0][2:]) < hi]
+
+
+def _cli_serve(work: str, files: dict) -> dict:
+    """``gwas serve --ready-file`` as a subprocess with the fused CLI scan's
+    flags: a second study admitted over HTTP at the ready address, an upload
+    of the booted study's own panel (the CLI scan's tables, byte for byte)
+    and a window query on the admitted one (the scan's hit and QC rows of
+    the covered markers); ``POST /shutdown`` must end it with 0."""
+    from repro_torch.api import Study
+    from repro_torch.serve import ServeClient
+
+    ready = os.path.join(work, "serve.ready")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.gwas", "serve", "--genotypes", files["bed"],
+         "--pheno", files["pheno"], "--covar", files["cov"], "--engine", "fused",
+         "--batch-markers", "256", "--device", DEVICE, "--ready-file", ready,
+         "--out-root", os.path.join(work, "served")],
+        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.exists(ready) and proc.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(os.path.exists(ready), f"CLI serve did not boot (exit {proc.poll()})")
+        row = {"boot_s": time.perf_counter() - t0}
+        with open(ready) as f:
+            address, port = f.read().split()
+        client = ServeClient(address, int(port), timeout=600.0)
+        client.admit_study("posted", genotypes=files["bed"], phenotypes=files["pheno"],
+                           covariates=files["cov"],
+                           plan={"engine": "fused", "grid": {"batch_markers": 256}})
+        study = Study.from_files(files["bed"], files["pheno"], files["cov"], device=DEVICE)
+        t1 = time.perf_counter()
+        pid = client.scan_panel("default", study.phenotypes, study.trait_names)
+        wid = client.scan_window("posted", 300, 700)
+        client.wait(pid, timeout=600)
+        lo, hi = client.wait(wid, timeout=600)["covered"]
+        row["requests_s"] = time.perf_counter() - t1
+        scan = os.path.join(work, "fused")
+        for name, want in _tsv_bytes(scan).items():
+            check(client.fetch(pid, name) == want, f"CLI serve: the panel's {name} differs "
+                  "from the CLI scan's")
+            client.fetch_to(wid, name, os.path.join(work, f"window_{name}"))
+        for name in ("hits.tsv", "qc.tsv"):
+            got = _marker_rows(os.path.join(work, f"window_{name}"), lo, hi)
+            check(got and got == _marker_rows(os.path.join(scan, name), lo, hi),
+                  f"CLI serve: the window's {name} rows differ from the CLI scan's")
+        client.shutdown()
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            out, err = proc.communicate()
+    check(proc.returncode == 0, f"CLI serve exited {proc.returncode}:\n{err[-3000:]}")
+    lines = [json.loads(line) for line in out.splitlines()]
+    check(lines[-1] == {"stopped": {"requests": {"done": 2}}}, f"CLI serve: {lines[-1]}")
+    row.update(covered=[lo, hi], prepare_s=lines[0]["serving"]["prepare_s"],
+               device=lines[0]["serving"]["device"], command_s=time.perf_counter() - t0,
+               bytes_equal_to_scan=True, exit_code=proc.returncode)
+    return row
 
 
 def phase_cli(tmp: str) -> None:
@@ -1630,6 +1890,7 @@ def phase_cli(tmp: str) -> None:
     check(np.array_equal(phi, phi_cpu), "KING kinship differs between the card and the CPU")
     keep = kinship.greedy_unrelated(phi)
     row["kinship"] = {"samples": 400, "excluded": int((~keep).sum()), "bitwise_vs_cpu": True}
+    row["serve"] = _cli_serve(work, files)
     emit(row)
 
 
@@ -1683,6 +1944,7 @@ def main(argv: list[str]) -> int:
         phase_identities(tmp, cohort)
         phase_executor(tmp, study, fused, dense, multivariate)
         phase_multihost(tmp, study, cohort)
+        phase_serve(tmp, study)
         del study, cohort, fused, dense, multivariate
         lmm_timing = phase_lmm_scan(tmp)
         torch.cuda.empty_cache()

@@ -416,9 +416,24 @@ class ScanPlan:
         )
         return self._prepared
 
-    def run(self, *, resume: bool = True) -> "ScanSession":
-        """Prepare (if not already) and open an executable session."""
-        return ScanSession(self.prepare(), resume=resume)
+    def run(
+        self,
+        *,
+        resume: bool = True,
+        executor=None,
+        marker_window: tuple[int, int] | None = None,
+    ) -> "ScanSession":
+        """Prepare (if not already) and open an executable session.
+
+        ``executor`` injects a pre-built executor handle (the serve layer's
+        shared worker pool) instead of the session constructing its own;
+        ``marker_window`` restricts the run to the batch-aligned sub-grid
+        covering ``[lo, hi)`` markers.
+        """
+        return ScanSession(
+            self.prepare(), resume=resume, executor=executor,
+            marker_window=marker_window,
+        )
 
 
 # ------------------------------------------------------------------ executor
@@ -1136,6 +1151,7 @@ class ScanSession:
         resume: bool = True,
         step: Callable[..., dict] | None = None,
         executor=None,
+        marker_window: tuple[int, int] | None = None,
     ):
         self.prepared = prepared
         self.study = prepared.study
@@ -1148,7 +1164,23 @@ class ScanSession:
         # An injected executor handle (duck-typed: ``cells(todo, pending)``
         # generator + ``info()``) replaces the session-owned executor.
         self._executor = executor
-        self._batches = list(prepared.batches)
+        # A batch-aligned sub-grid: only marker batches overlapping [lo, hi)
+        # are computed (the serve layer's marker-window queries).  The window
+        # is widened to batch boundaries (``window_covered`` is the exact
+        # extent), so every computed cell is bit-identical to the same cell
+        # of a full scan.
+        self.marker_window = marker_window
+        if marker_window is not None:
+            lo, hi = int(marker_window[0]), int(marker_window[1])
+            if not (0 <= lo < hi <= self.study.n_markers):
+                raise ValueError(
+                    f"marker_window [{lo}, {hi}) outside [0, {self.study.n_markers})"
+                )
+            self._batches = [b for b in prepared.batches if b.hi > lo and b.lo < hi]
+            self.window_covered = (self._batches[0].lo, self._batches[-1].hi)
+        else:
+            self._batches = list(prepared.batches)
+            self.window_covered = None
 
         # Executor selection.  devices=0 means every visible device (every
         # CUDA card; the CPU counts as one); 1 is the serial walk.  Resolved
@@ -1333,7 +1365,15 @@ class ScanSession:
         # complete grid (that is what makes N hosts' outputs identical).
         if ckpt is not None:
             ckpt.refresh()
+            # A windowed session replays only its own batches: cells other
+            # sessions committed outside the window are not its grid.
+            window_b = (
+                {b.index for b in self._batches}
+                if self.marker_window is not None else None
+            )
             for bidx, kidx in sorted(ckpt.completed_cells() - computed):
+                if window_b is not None and bidx not in window_b:
+                    continue
                 t0 = time.perf_counter()
                 cell = CellResult.from_shard(bidx, kidx, ckpt.load_cell(bidx, kidx))
                 self.metrics.record(CellTiming(

@@ -16,16 +16,21 @@ and output schema plus ``--device``.
 
     python -m repro_torch.launch.gwas report --out results/ [--top 20]
 
+    python -m repro_torch.launch.gwas serve \
+        --genotypes cohort.bed --pheno panel.tsv --covar covars.tsv \
+        [--engine fused] [--port 8080] [--ready-file ready.txt] [--device cpu]
+
 ``scan`` binds a Study, plans the grid, and streams the session's events
 through result writers — hits land in sorted ``hits.tsv`` batch by batch,
 per-trait best and per-marker QC follow at close, and ``summary.json``
 records the run.  ``grm`` runs the streamed GRM pass standalone; ``merge``
 turns a committed checkpoint directory into final outputs without
-recomputing anything; ``report`` pretty-prints a results directory.
-``scan`` and ``grm`` run on the CUDA card unless ``--device cpu`` is given;
-``merge`` and ``report`` only read files on the host.  The reference's
-``serve`` subcommand is not ported yet.  The flags-only invocation (no
-subcommand) means ``scan``.
+recomputing anything; ``report`` pretty-prints a results directory;
+``serve`` keeps a cohort resident and answers phenotype-panel uploads and
+marker-window queries over HTTP, each served table byte-identical to an
+offline ``scan``.  ``scan``, ``grm`` and ``serve`` run on the CUDA card
+unless ``--device cpu`` is given; ``merge`` and ``report`` only read files
+on the host.  The flags-only invocation (no subcommand) means ``scan``.
 """
 from __future__ import annotations
 
@@ -42,8 +47,7 @@ from repro_torch.core.engines import available_engines
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.workqueue import available_backends
 
-SUBCOMMANDS = ("scan", "grm", "merge", "report")
-NOT_PORTED = ("serve",)
+SUBCOMMANDS = ("scan", "grm", "merge", "report", "serve")
 
 
 # ------------------------------------------------------------------- scan
@@ -476,16 +480,131 @@ def cmd_report(argv) -> None:
         print(f"  {r[0]:<14} {r[1]:<12} {r[2]:>8} {r[3]:>9} {r[4]:>9}")
 
 
+# ------------------------------------------------------------------ serve
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.gwas serve",
+        description="Persistent multi-tenant scan service (DESIGN.md §16): "
+                    "keep a cohort resident — open source, residualized "
+                    "panel, GRM spectrum, warm device slots — and serve "
+                    "phenotype-panel scans and marker-window queries over "
+                    "HTTP, byte-identical to the offline `scan` subcommand.",
+    )
+    ap.add_argument("--genotypes", required=True,
+                    help="resident study genotypes (.bed/.bgen/.npy/.npz, "
+                         "glob, or comma list)")
+    ap.add_argument("--pheno", required=True, help="resident phenotype table")
+    ap.add_argument("--covar", default=None, help="covariate table")
+    ap.add_argument("--study-id", default="default",
+                    help="name the resident study registers under")
+    ap.add_argument("--engine", default="dense", choices=available_engines())
+    ap.add_argument("--batch-markers", type=int, default=8192)
+    ap.add_argument("--trait-block", type=int, default=0)
+    ap.add_argument("--block-p", type=int, default=256)
+    ap.add_argument("--hit-threshold", type=float, default=7.301)
+    ap.add_argument("--maf-min", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda",
+                    help="where the resident study runs: cuda (default; an "
+                         "error without a card), cuda:i, or cpu")
+    sv = ap.add_argument_group("service")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=0,
+                    help="listen port (0 = ephemeral; the bound port is "
+                         "printed and written to --ready-file)")
+    sv.add_argument("--devices", type=int, default=1,
+                    help="serve worker slots (0 = every visible device)")
+    sv.add_argument("--max-resident-slots", type=int, default=8,
+                    help="warm device-state cache capacity (LRU-evicted "
+                         "beyond this; pinned slots never evict)")
+    sv.add_argument("--lease-size", type=int, default=1,
+                    help="cells leased per worker claim from the fair-share "
+                         "queue (1 = finest-grained interleaving)")
+    sv.add_argument("--drr-quantum", type=float, default=2.0,
+                    help="deficit-round-robin quantum: cells credited per "
+                         "request queue per scheduling round, scaled by "
+                         "study weight")
+    sv.add_argument("--weight", type=float, default=1.0,
+                    help="fair-share weight of the resident study")
+    sv.add_argument("--out-root", default=None,
+                    help="directory for per-request result bundles "
+                         "(default: a fresh temp dir)")
+    sv.add_argument("--ready-file", default=None,
+                    help="write '<host> <port>' here once listening "
+                         "(atomic; lets scripts wait for boot)")
+    sv.add_argument("--no-warm", action="store_true",
+                    help="skip the eager resident-panel prepare at boot "
+                         "(first window query pays it instead)")
+    sv.add_argument("--verbose", action="store_true",
+                    help="log HTTP requests to stderr")
+    return ap
+
+
+def cmd_serve(argv) -> None:
+    import signal
+
+    from repro_torch.api import GridSpec, ServeSpec, Study
+    from repro_torch.serve import ServeHost, ServeServer
+
+    args = build_serve_parser().parse_args(argv)
+    spec = ServeSpec(
+        host=args.host, port=args.port, devices=args.devices,
+        max_resident_slots=args.max_resident_slots,
+        lease_size=args.lease_size, drr_quantum=args.drr_quantum,
+        default_weight=args.weight,
+    )
+    spec.validate()
+    study = Study.from_files(args.genotypes, args.pheno, args.covar, device=args.device)
+    host = ServeHost(
+        devices=spec.devices,
+        max_resident_slots=spec.max_resident_slots,
+        lease_size=spec.lease_size,
+        drr_quantum=spec.drr_quantum,
+        default_weight=spec.default_weight,
+        out_root=args.out_root,
+        device=args.device,
+    )
+    host.admit_study(
+        args.study_id, study,
+        engine=args.engine,
+        grid=GridSpec(batch_markers=args.batch_markers,
+                      trait_block=args.trait_block, block_p=args.block_p),
+        hit_threshold_nlp=args.hit_threshold,
+        maf_min=args.maf_min,
+    )
+    boot: dict = {"study": args.study_id, "warm": not args.no_warm,
+                  "device": str(host.device)}
+    if not args.no_warm:
+        boot["prepare_s"] = host.warm_study(args.study_id)["prepare_s"]
+    server = ServeServer(
+        host, bind=spec.host, port=spec.port, verbose=args.verbose
+    ).start()
+    bound_host, bound_port = server.address
+    boot.update({"host": bound_host, "port": bound_port,
+                 "out_root": host.out_root})
+    print(json.dumps({"serving": boot}), flush=True)
+    if args.ready_file:
+        tmp = args.ready_file + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(f"{bound_host} {bound_port}\n")
+        os.replace(tmp, args.ready_file)
+
+    def _stop(signum, frame):  # noqa: ARG001 — signal signature
+        server.shutdown_async()
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    server.wait()
+    print(json.dumps({"stopped": {"requests": host.metrics_summary()["requests"]}}),
+          flush=True)
+
+
 # ------------------------------------------------------------------- main
 
 
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in NOT_PORTED:
-        raise SystemExit(
-            f"the {argv[0]!r} subcommand is not ported to repro_torch yet; "
-            "use python -m repro.launch.gwas for it"
-        )
     try:
         if argv and argv[0] in SUBCOMMANDS:
             cmd, rest = argv[0], argv[1:]
@@ -494,6 +613,7 @@ def main(argv=None) -> None:
                 "grm": cmd_grm,
                 "merge": cmd_merge,
                 "report": cmd_report,
+                "serve": cmd_serve,
             }[cmd](rest)
         return cmd_scan(argv)
     except BrokenPipeError:

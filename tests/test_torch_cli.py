@@ -18,6 +18,7 @@ files, on the CPU (``--device cpu``):
 """
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -35,6 +36,7 @@ from repro_torch.launch.gwas import main  # noqa: E402
 # at these sizes.
 torch.set_num_threads(1)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 THRESHOLD = 7.301
 BAND = 0.05
 # (r atol, t rtol=atol, nlp rtol, nlp atol) + the TSV's rounding (r 5 dp,
@@ -221,10 +223,76 @@ def test_cli_report_without_hits_refuses(tmp_path):
 
 
 def test_cli_subcommands_and_serve_refusal():
-    assert port_gwas.SUBCOMMANDS == ("scan", "grm", "merge", "report")
-    assert port_gwas.NOT_PORTED == ("serve",)
-    with pytest.raises(SystemExit, match="not ported"):
-        main(["serve", "--genotypes", "x.bed", "--pheno", "x.tsv"])
+    """Every subcommand of the reference is ported, ``serve`` included; a
+    ``serve`` without its cohort is refused by its parser."""
+    assert port_gwas.SUBCOMMANDS == ("scan", "grm", "merge", "report", "serve")
+    assert not hasattr(port_gwas, "NOT_PORTED")
+    with pytest.raises(SystemExit):
+        main(["serve", "--pheno", "x.tsv"])
+
+
+def _marker_rows(path, lo, hi):
+    """A TSV's data rows whose marker (``rs%08d``, first column) lies in
+    ``[lo, hi)``, in file order."""
+    with open(path) as f:
+        next(f)
+        return [line for line in f if lo <= int(line.split("\t", 1)[0][2:]) < hi]
+
+
+def test_cli_serve_matches_cli_scan(files, tmp_path):
+    """``serve --device cpu --ready-file`` as a subprocess: an upload of the
+    study's own panel returns the CLI scan's tables byte for byte, and a
+    window query returns the scan's hit and QC rows of the covered markers;
+    ``POST /shutdown`` ends the process with 0."""
+    import subprocess
+    import sys
+
+    from repro_torch.api import Study
+    from repro_torch.serve import ServeClient
+
+    grid = ["--batch-markers", "256", "--trait-block", "4", "--block-p", "4",
+            "--hit-threshold", "2.0"]
+    scan_out = str(tmp_path / "scan")
+    main(["scan", "--genotypes", files["bed"], "--pheno", files["pheno"], "--covar",
+          files["cov"], "--out", scan_out, "--device", "cpu", *grid])
+    ready = tmp_path / "ready"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.gwas", "serve", "--genotypes", files["bed"],
+         "--pheno", files["pheno"], "--covar", files["cov"], "--device", "cpu", *grid,
+         "--ready-file", str(ready), "--out-root", str(tmp_path / "served")],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.time() + 120
+        while not ready.exists() and proc.poll() is None and time.time() < deadline:
+            time.sleep(0.05)
+        assert ready.exists(), proc.stderr.read() if proc.poll() is not None else "no boot"
+        host, port = ready.read_text().split()
+        client = ServeClient(host, int(port), timeout=60.0)
+        study = Study.from_files(files["bed"], files["pheno"], files["cov"], device="cpu")
+        pid = client.scan_panel("default", np.asarray(study.phenotypes), study.trait_names)
+        wid = client.scan_window("default", 300, 400)
+        client.wait(pid, timeout=300)
+        lo, hi = client.wait(wid, timeout=300)["covered"]
+        assert (lo, hi) == (256, 512)
+        for name in ("hits.tsv", "per_trait_best.tsv", "qc.tsv"):
+            with open(os.path.join(scan_out, name), "rb") as f:
+                assert client.fetch(pid, name) == f.read(), name
+            client.fetch_to(wid, name, str(tmp_path / f"w_{name}"))
+        for name in ("hits.tsv", "qc.tsv"):
+            got = _marker_rows(tmp_path / f"w_{name}", lo, hi)
+            assert got and got == _marker_rows(os.path.join(scan_out, name), lo, hi), name
+        assert client.shutdown() == {"ok": True}
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    lines = [json.loads(line) for line in out.splitlines()]
+    assert lines[0]["serving"]["device"] == "cpu" and lines[0]["serving"]["prepare_s"] > 0
+    assert lines[-1] == {"stopped": {"requests": {"done": 2}}}
 
 
 # ---------------------------------------------------------------- scan parity

@@ -321,7 +321,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert not offenders, offenders
     # and at run time: importing the whole port loads neither package
     code = (
-        "import sys, repro_torch.api, repro_torch.launch.gwas, repro_torch.kernels.build;"
+        "import sys, repro_torch.api, repro_torch.launch.gwas, repro_torch.kernels.build,"
+        " repro_torch.serve;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
         "assert not bad, bad"
     )
