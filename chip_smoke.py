@@ -95,6 +95,15 @@ Phases, each printing one JSON line:
                   REML at warm-up): one window query across the shards,
                   byte-equal to its offline windowed scan, the screen kernel
                   launched once per served cell
+  mesh            the sharding mesh (``ScanPlan(mesh=)``): a world of one
+                  process spawned over NCCL with a (1, 1) ("data", "model")
+                  mesh; the fused engine ``mp`` at scan's width and grid,
+                  its hits.tsv, per_trait_best.tsv and qc.tsv byte-equal to
+                  scan's (the mesh keeps the dense p-value epilogue: the
+                  sparse == dense identity), and the lmm fused epilogue
+                  ``mp`` on lmm_identities' cohort, byte-equal to its serial
+                  scan (the tstat kernel on each cell); wall, step and
+                  prepare times, launches, bytes moved by collectives
   cli             ``python -m repro_torch.launch.gwas scan`` with
                   ``--engine fused``, ``--engine lmm --lmm-epilogue fused
                   --loco`` on a split fileset, and ``--multivariate`` with a
@@ -122,7 +131,19 @@ runs the device phase and the named phases among ``build``, ``kernel`` and
 
 runs the multi-device executor over every card (``devices``: the scan
 cohort in 16 cells, fused and dense, bitwise against the serial run on
-``cuda:0``, each slot on its own card and stream).
+``cuda:0``, each slot on its own card and stream), and
+
+    python3 chip_smoke.py --only build,mesh
+
+runs the sharding mesh over the cards, one process per card over NCCL: a
+(2, 2) mesh on 4 cards, (2, 1) and (1, 2) on 2 (and (1, 1) on one card, a
+quick check of the phase itself).  Against serial scans on ``cuda:0``:
+dense ``mp`` and ``sample`` and the fused engine ``mp`` at the scan cohort's
+width, the lmm fused epilogue ``mp`` on lmm_identities' cohort, the dense
+multivariate screen ``mp``; fused tables byte-equal, the rest at the oracle
+tolerances; every rank's gathered tiles bitwise equal (a digest of every
+cell), a repeated ``sample`` run bitwise equal, and a checkpoint cut under
+the mesh resumed with no mesh byte-equal to the serial tables.
 """
 from __future__ import annotations
 
@@ -210,6 +231,13 @@ COMPACT_TILE = 4096
 # N x N; the epilogue's ops do not depend on N)
 SYNC_LMM_SAMPLES = 4096
 T_RTOL = 2e-6
+# the mesh phase: its mesh shapes by card count, and the cells a
+# checkpointed run under the mesh computes before it is cut
+MESH_SHAPES = {4: ((2, 2),), 2: ((2, 1), (1, 2)), 1: ((1, 1),)}
+MESH_CUT_CELLS = 2
+# dense-engine oracle tolerances (tests/test_oracle.py): r, t (rel, abs),
+# nlp (rel, abs)
+DENSE_TOL = (2e-5, (2e-4, 2e-4), (2e-3, 5e-3))
 
 
 def emit(obj: dict) -> None:
@@ -1663,17 +1691,11 @@ def phase_lmm_scan(tmp: str) -> dict:
 def phase_lmm_identities(tmp: str) -> dict:
     """The port's bitwise identities on the mixed-model path (REML, LOCO over
     two shards), and the fused epilogue against the dense one."""
-    from repro_torch.api import ExecSpec, GridSpec, IOSpec, LmmSpec, Study
-    from repro_torch.io import open_genotypes, synth
+    from repro_torch.api import ExecSpec, GridSpec, IOSpec, LmmSpec
 
     cfg = LMM_IDENT
-    cohort = synth.make_structured_cohort(
-        n_samples=cfg["n_samples"], n_markers=cfg["n_markers"], n_traits=cfg["n_traits"],
-        n_covariates=cfg["n_covariates"], h2=0.4, n_causal=16, effect_size=0.1, seed=7,
-    )
-    beds = synth.write_split_plink(cohort, os.path.join(tmp, "ident"), n_shards=cfg["n_shards"])
-    study = Study.from_arrays(open_genotypes(",".join(beds)), cohort.phenotypes,
-                              cohort.covariates)
+    study, files = _lmm_ident_cohort(tmp)
+    serial_out = os.path.join(tmp, "lmm_ident_out")
     fused = LmmSpec(epilogue="fused", loco=True)
     grid = GridSpec(batch_markers=cfg["batch_markers"], trait_block=cfg["trait_block"])
     runs = {
@@ -1688,7 +1710,8 @@ def phase_lmm_identities(tmp: str) -> dict:
     }
     cols, canon, launches, info, grids = {}, {}, {}, {}, {}
     for name, kw in runs.items():
-        col, _, timing = _run(study, None, engine="lmm", **kw)
+        col, _, timing = _run(study, serial_out if name == "sparse" else None,
+                              engine="lmm", **kw)
         cols[name], canon[name], launches[name] = col, col.canonical(), timing["launches"]
         info[name] = {"wall_s": timing["wall_s"], "prepare_s": timing["prepare_s"],
                       **timing["lmm"]}
@@ -1708,7 +1731,7 @@ def phase_lmm_identities(tmp: str) -> dict:
     emit({"phase": "lmm_identities", **cfg, "hits": int(len(canon["sparse"]["hits"])),
           **result, "fused_vs_dense_epilogue": cmp, "launches": launches, "runs": info})
     phase_serve_lmm(tmp, study, dict(engine="lmm", **runs["sparse"]))
-    return launches["dense_audit"]
+    return launches["dense_audit"], {"files": files, "out": serial_out}
 
 
 def _gwas(work: str, *args) -> tuple[str, float]:
@@ -1894,6 +1917,356 @@ def phase_cli(tmp: str) -> None:
     emit(row)
 
 
+def _mesh_kind() -> str:
+    """The mesh's device type: the card's, or the CPU's when a rehearsal
+    sets ``DEVICE = "cpu"``."""
+    return "cpu" if DEVICE == "cpu" else "cuda"
+
+
+def _mesh_study(job: dict):
+    import numpy as np
+
+    from repro_torch.api import Study
+    from repro_torch.io import open_genotypes
+
+    return Study.from_arrays(open_genotypes(job["genotypes"]), np.load(job["pheno"]),
+                             np.load(job["cov"]), device=_mesh_kind())
+
+
+def _mesh_job(mesh, rank: int, job: dict) -> dict:
+    """One scan of the mesh phase on one rank: Study -> plan(mesh=) ->
+    session, rank 0 feeding a TsvWriter; a digest of every cell's arrays
+    (equal on every rank: each holds the gathered tiles)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import GridSpec, LmmSpec, TsvWriter
+    from repro_torch.runtime import sharding
+
+    kw = {k: job[k] for k in ("engine", "mode", "multivariate", "checkpoint_dir") if k in job}
+    if "lmm" in job:
+        kw["lmm"] = LmmSpec(**job["lmm"])
+    plan = _mesh_study(job).plan(device=_mesh_kind(), mesh=mesh, grid=GridSpec(**job["grid"]),
+                                 **kw)
+    t0 = time.perf_counter()
+    plan.prepare()
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    session = plan.run()
+    writer = TsvWriter(job["out"]) if rank == 0 and job.get("out") else None
+    if writer is not None:
+        writer.open(session)
+    digest = hashlib.sha256()
+    stop = job.get("stop_after")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sharding.collective_bytes = 0
+    n = 0
+    t0 = time.perf_counter()
+    events = session.events()
+    for cell in events:
+        digest.update(f"{cell.batch_index},{cell.block_index}".encode())
+        for key in sorted(cell.arrays):
+            digest.update(key.encode() + np.ascontiguousarray(cell.arrays[key]).tobytes())
+        if writer is not None:
+            writer.write(cell)
+        n += 1
+        if n == stop:
+            break
+    events.close()
+    if writer is not None and stop is None:
+        writer.close()
+    wall = time.perf_counter() - t0
+    metrics = session.metrics.summary()
+    return {"prepare_s": prepare_s, "wall_s": wall, "step_s": metrics["step_s"],
+            "extract_s": metrics["extract_s"], "decode_s": metrics["decode_s"],
+            "cells": n, "launches": read_launches(),
+            "collective_bytes_per_cell": sharding.collective_bytes / max(n, 1),
+            "digest": digest.hexdigest(), "executor": session.executor_info,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _mesh_rank(rank: int, world: int, store: str, shape, jobs, tmp: str) -> None:
+    """One spawned rank of the mesh phase: its own card, NCCL (initialized
+    eagerly, so a failure surfaces here), the ("data", "model") mesh, each
+    job in turn.  Writes its results to ``tmp/mesh_rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import datetime
+
+    torch.cuda.set_device(rank)
+    # a collective that waits longer than this fails the rank (and the run)
+    dist.init_process_group("nccl", init_method="file://" + store, rank=rank,
+                            world_size=world, device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = init_device_mesh("cuda", tuple(shape), mesh_dim_names=("data", "model"))
+        out = {job["name"]: _mesh_job(mesh, rank, job) for job in jobs}
+        with open(os.path.join(tmp, f"mesh_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_mesh(tmp: str, shape, jobs: list) -> list:
+    """Run ``jobs`` on a mesh of ``shape``, one spawned process per card;
+    returns each rank's results after checking that every rank's cells
+    carry the same bits."""
+    import torch.multiprocessing as mp
+
+    world = math.prod(shape)
+    store = os.path.join(tmp, f"mesh_store_{'x'.join(map(str, shape))}")
+    for r in range(world):
+        path = os.path.join(tmp, f"mesh_rank{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(world, store, list(shape), jobs, tmp), nprocs=world, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(tmp, f"mesh_rank{r}.json"))) for r in range(world)]
+    for job in jobs:
+        digests = {ranks[r][job["name"]]["digest"] for r in range(world)}
+        check(len(digests) == 1, f"mesh {shape}/{job['name']}: the ranks' cells differ")
+    ranks[0]["spawn_s"] = spawn_s
+    return ranks
+
+
+def _mesh_files(tmp: str, stem: str, cohort) -> dict:
+    import numpy as np
+
+    paths = {"pheno": os.path.join(tmp, f"{stem}.pheno.npy"),
+             "cov": os.path.join(tmp, f"{stem}.cov.npy")}
+    np.save(paths["pheno"], cohort.phenotypes)
+    np.save(paths["cov"], cohort.covariates)
+    return paths
+
+
+def _row(res: dict) -> dict:
+    return {k: res[k] for k in ("prepare_s", "wall_s", "step_s", "extract_s", "cells",
+                                "launches", "collective_bytes_per_cell",
+                                "max_memory_allocated")}
+
+
+def _read_hits(out: str) -> dict:
+    with open(os.path.join(out, "hits.tsv")) as f:
+        f.readline()
+        return {(m, t): tuple(float(v) for v in rest)
+                for m, t, *rest in (ln.rstrip("\n").split("\t") for ln in f)}
+
+
+def _compare_tables(got: str, want: str, tol=DENSE_TOL) -> dict:
+    """Two output directories of one scan at a stated tolerance: the same
+    hits outside the +/-band around the threshold, hit values and per-trait
+    bests within ``tol`` plus the TSV's rounding (r 5 decimals, t 4, nlp
+    3), per-trait winners equal where the best is past the band, qc.tsv's
+    marker, maf and valid columns equal."""
+    tol_r, tol_t, tol_nlp = tol
+    a, b = _read_hits(got), _read_hits(want)
+    for x, y, nx in ((a, b, "mesh"), (b, a, "serial")):
+        missing = [k for k, v in x.items() if v[2] >= 7.301 + HIT_BAND and k not in y]
+        check(not missing, f"hits only in the {nx} tables: {missing[:5]}")
+    dr = dt = dn = 0.0
+    for k in set(a) & set(b):
+        (r1, t1, n1), (r2, t2, n2) = a[k], b[k]
+        dr, dt, dn = max(dr, abs(r1 - r2)), max(dt, abs(t1 - t2)), max(dn, abs(n1 - n2))
+        check(abs(r1 - r2) <= tol_r + 1e-5, f"hit {k}: r {r1} vs {r2}")
+        check(abs(t1 - t2) <= tol_t[1] + tol_t[0] * abs(t2) + 1e-4, f"hit {k}: t {t1} vs {t2}")
+        check(abs(n1 - n2) <= tol_nlp[1] + tol_nlp[0] * abs(n2) + 1e-3,
+              f"hit {k}: nlp {n1} vs {n2}")
+    rows = {}
+    for name in ("per_trait_best.tsv", "qc.tsv"):
+        with open(os.path.join(got, name)) as f1, open(os.path.join(want, name)) as f2:
+            rows[name] = ([ln.rstrip("\n").split("\t") for ln in f1],
+                          [ln.rstrip("\n").split("\t") for ln in f2])
+    best_dn = 0.0
+    for (tr1, m1, n1), (tr2, m2, n2) in zip(*(r[1:] for r in rows["per_trait_best.tsv"])):
+        n1, n2 = float(n1), float(n2)
+        best_dn = max(best_dn, abs(n1 - n2))
+        check(tr1 == tr2 and abs(n1 - n2) <= tol_nlp[1] + tol_nlp[0] * abs(n2) + 1e-3,
+              f"per-trait best {tr1}: {n1} vs {n2}")
+        check(n2 < 7.301 + HIT_BAND or m1 == m2, f"per-trait winner {tr1}: {m1} vs {m2}")
+    qc1, qc2 = rows["qc.tsv"]
+    check(len(qc1) == len(qc2) and qc1[0] == qc2[0], "qc.tsv shapes differ")
+    for x, y in zip(qc1[1:], qc2[1:]):
+        check(x[:3] == y[:3], f"qc.tsv row {x} vs {y}")
+        for u, v in zip(x[3:], y[3:]):
+            check(abs(float(u) - float(v)) <= tol_nlp[1] + tol_nlp[0] * abs(float(v)) + 1e-3,
+                  f"qc.tsv omnibus {x} vs {y}")
+    return {"hits": [len(a), len(b)], "common": len(set(a) & set(b)), "max_dr": dr,
+            "max_dt": dt, "max_dnlp": dn, "best_max_dnlp": best_dn}
+
+
+def phase_mesh_one(tmp: str, lmm_ident: dict) -> dict:
+    """The full run's mesh phase: a world of one over NCCL, mesh (1, 1).
+    The fused engine ``mp`` on scan's cohort writes scan's tables byte for
+    byte; the lmm fused epilogue ``mp`` writes lmm_identities' serial
+    tables byte for byte.  Returns the mesh path's launch counts."""
+    scan_files = dict(genotypes=os.path.join(tmp, "cohort.bed"),
+                      pheno=os.path.join(tmp, "cohort.pheno.npy"),
+                      cov=os.path.join(tmp, "cohort.cov.npy"))
+    jobs = [
+        dict(name="fused_mp", engine="fused", out=os.path.join(tmp, "mesh_fused"),
+             grid=dict(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"]),
+             **scan_files),
+        # the same scan again, warm (the first pays the process's first use
+        # of the dense epilogue's kernels)
+        dict(name="fused_mp_again", engine="fused",
+             grid=dict(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"]),
+             **scan_files),
+        dict(name="lmm_fused_mp", engine="lmm", out=os.path.join(tmp, "mesh_lmm"),
+             lmm=dict(epilogue="fused", loco=True),
+             grid=dict(batch_markers=LMM_IDENT["batch_markers"],
+                       trait_block=LMM_IDENT["trait_block"]),
+             **lmm_ident["files"]),
+    ]
+    ranks = _spawn_mesh(tmp, (1, 1), jobs)
+    res = ranks[0]
+    check(_tsv_bytes(os.path.join(tmp, "mesh_fused")) == _tsv_bytes(os.path.join(tmp, "fused")),
+          "mesh (1, 1) fused tables differ from scan's")
+    check(_tsv_bytes(os.path.join(tmp, "mesh_lmm")) == _tsv_bytes(lmm_ident["out"]),
+          "mesh (1, 1) lmm tables differ from lmm_identities' serial scan")
+    fused, lmm = res["fused_mp"], res["lmm_fused_mp"]
+    check(res["fused_mp_again"]["digest"] == fused["digest"],
+          "mesh (1, 1): a repeated fused scan gave other bits")
+    check(fused["launches"]["gwas_dot"] == fused["cells"],
+          f"mesh fused: gwas_dot launched {fused['launches']['gwas_dot']} times "
+          f"for {fused['cells']} cells")
+    check(fused["launches"]["compact_survivors"] == 0, "mesh fused: the sparse epilogue ran")
+    check(lmm["launches"]["tstat"] == lmm["cells"],
+          f"mesh lmm: tstat launched {lmm['launches']['tstat']} times for {lmm['cells']} cells")
+    check(lmm["launches"]["screen_compact"] == 0, "mesh lmm: the sparse epilogue ran")
+    emit({"phase": "mesh", "world": 1, "shape": [1, 1], "backend": "nccl",
+          "spawn_s": res["spawn_s"], "fused_tables_equal_scan": True,
+          "lmm_tables_equal_serial": True,
+          "runs": {k: _row(res[k]) for k in ("fused_mp", "fused_mp_again", "lmm_fused_mp")},
+          "executor": fused["executor"]})
+    return {"gwas_dot": fused["launches"]["gwas_dot"], "tstat": lmm["launches"]["tstat"]}
+
+
+def _lmm_ident_cohort(tmp: str):
+    from repro_torch.api import Study
+    from repro_torch.io import open_genotypes, synth
+
+    cfg = LMM_IDENT
+    cohort = synth.make_structured_cohort(
+        n_samples=cfg["n_samples"], n_markers=cfg["n_markers"], n_traits=cfg["n_traits"],
+        n_covariates=cfg["n_covariates"], h2=0.4, n_causal=16, effect_size=0.1, seed=7,
+    )
+    beds = synth.write_split_plink(cohort, os.path.join(tmp, "ident"), n_shards=cfg["n_shards"])
+    study = Study.from_arrays(open_genotypes(",".join(beds)), cohort.phenotypes,
+                              cohort.covariates)
+    return study, dict(genotypes=",".join(beds), **_mesh_files(tmp, "ident", cohort))
+
+
+def phase_mesh(tmp: str) -> dict:
+    """``--only mesh``: the mesh over every card against serial scans on
+    ``cuda:0`` (module docstring)."""
+    import torch
+
+    from repro_torch.api import GridSpec, LmmSpec
+
+    n = torch.cuda.device_count()
+    shapes = MESH_SHAPES[4 if n >= 4 else 2 if n >= 2 else 1]
+    t0 = time.perf_counter()
+    study, cohort = _scan_cohort(tmp)
+    scan_files = dict(genotypes=os.path.join(tmp, "cohort.bed"),
+                      **_mesh_files(tmp, "cohort", cohort))
+    del cohort
+    lmm_study, lmm_files = _lmm_ident_cohort(tmp)
+    setup_s = time.perf_counter() - t0
+    grid = dict(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
+    lgrid = dict(batch_markers=LMM_IDENT["batch_markers"], trait_block=LMM_IDENT["trait_block"])
+    lmm = dict(epilogue="fused", loco=True)
+    runs = {  # name -> (plan kwargs, files, grid, serial reference)
+        "fused_mp": (dict(engine="fused"), scan_files, grid, "fused"),
+        # the same scan again: the first one pays each rank's first use of
+        # its NCCL communicators and of the dense epilogue's kernels
+        "fused_mp_again": (dict(engine="fused"), scan_files, grid, None),
+        "dense_mp": (dict(engine="dense"), scan_files, grid, "dense"),
+        "dense_sample": (dict(engine="dense", mode="sample"), scan_files, grid, "dense"),
+        "dense_sample_again": (dict(engine="dense", mode="sample"), scan_files, grid, None),
+        "dense_mv_mp": (dict(engine="dense", multivariate=True), scan_files,
+                        dict(batch_markers=SCAN["batch_markers"]), "dense_mv"),
+        "lmm_fused_mp": (dict(engine="lmm", lmm=lmm), lmm_files, lgrid, "lmm"),
+    }
+    serial = {}
+    for name, st, kw, g in (
+        ("fused", study, dict(engine="fused"), grid),
+        ("dense", study, dict(engine="dense"), grid),
+        ("dense_mv", study, dict(engine="dense", multivariate=True),
+         dict(batch_markers=SCAN["batch_markers"])),
+        ("lmm", lmm_study, dict(engine="lmm", lmm=LmmSpec(**lmm)), lgrid),
+    ):
+        out = os.path.join(tmp, f"serial_{name}")
+        _, _, timing = _run(st, out, grid=GridSpec(**g), **kw)
+        serial[name] = {"out": out, "wall_s": timing["wall_s"], "step_s": timing["step_s"],
+                        "prepare_s": timing["prepare_s"]}
+    del study, lmm_study
+    torch.cuda.empty_cache()
+    rows = {}
+    for shape in shapes:
+        label = "x".join(map(str, shape))
+        jobs = []
+        for name, (kw, files, g, _) in runs.items():
+            jobs.append(dict(name=name, out=os.path.join(tmp, f"mesh_{label}_{name}"),
+                             grid=g, **kw, **files))
+        ck = os.path.join(tmp, f"ck_{label}")
+        jobs.append(dict(name="cut", engine="fused", grid=grid, checkpoint_dir=ck,
+                         stop_after=MESH_CUT_CELLS, **scan_files))
+        ranks = _spawn_mesh(tmp, shape, jobs)
+        res = ranks[0]
+        fused = os.path.join(tmp, f"mesh_{label}_fused_mp")
+        check(_tsv_bytes(fused) == _tsv_bytes(serial["fused"]["out"]),
+              f"mesh {shape}: fused tables differ from the serial scan's")
+        for name in ("dense_sample", "fused_mp"):
+            check(res[f"{name}_again"]["digest"] == res[name]["digest"],
+                  f"mesh {shape}: a repeated {name} scan gave other bits")
+        compared = {}
+        for name, (_, _, _, ref) in runs.items():
+            if ref is not None and name != "fused_mp":
+                compared[name] = _compare_tables(os.path.join(tmp, f"mesh_{label}_{name}"),
+                                                 serial[ref]["out"])
+        for name in ("fused_mp", "fused_mp_again", "cut"):
+            check(res[name]["launches"]["gwas_dot"] == res[name]["cells"],
+                  f"mesh {shape}/{name}: gwas_dot launched "
+                  f"{res[name]['launches']['gwas_dot']} times for {res[name]['cells']} cells")
+        check(res["lmm_fused_mp"]["launches"]["tstat"] == res["lmm_fused_mp"]["cells"],
+              f"mesh {shape}: tstat not launched once per lmm cell")
+        # the cut checkpoint resumes with no mesh, on cuda:0, to the same bytes
+        resumed_out = os.path.join(tmp, f"resumed_{label}")
+        _, _, resumed = _run(_scan_study(scan_files), resumed_out, engine="fused",
+                             grid=GridSpec(**grid), checkpoint_dir=ck)
+        check(resumed["replayed_cells"] == MESH_CUT_CELLS,
+              f"mesh {shape}: resumed {resumed['replayed_cells']} cells from the cut")
+        check(_tsv_bytes(resumed_out) == _tsv_bytes(serial["fused"]["out"]),
+              f"mesh {shape}: the resumed scan's tables differ from the serial scan's")
+        rows[label] = {
+            "world": math.prod(shape), "spawn_s": res["spawn_s"],
+            "fused_tables_equal_serial": True, "ranks_bitwise_equal": True,
+            "repeats_bitwise": True, "resumed_without_mesh_equal": True,
+            "vs_serial": compared,
+            "runs": {name: _row(res[name]) for name in list(runs) + ["cut"]},
+            "executor": res["fused_mp"]["executor"],
+        }
+    emit({"phase": "mesh", "cards": n, "setup_s": setup_s, "backend": "nccl",
+          "serial": serial, "meshes": rows})
+    return rows
+
+
+def _scan_study(files: dict):
+    import numpy as np
+
+    from repro_torch.api import Study
+    from repro_torch.io import PlinkBed
+
+    return Study.from_arrays(PlinkBed(files["genotypes"]), np.load(files["pheno"]),
+                             np.load(files["cov"]))
+
+
 def _in_tmp(phase):
     def run():
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1905,7 +2278,7 @@ def _in_tmp(phase):
 
 
 QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": phase_kernel_tstat,
-                "devices": _in_tmp(phase_devices)}
+                "devices": _in_tmp(phase_devices), "mesh": _in_tmp(phase_mesh)}
 
 
 def main(argv: list[str]) -> int:
@@ -1948,7 +2321,9 @@ def main(argv: list[str]) -> int:
         del study, cohort, fused, dense, multivariate
         lmm_timing = phase_lmm_scan(tmp)
         torch.cuda.empty_cache()
-        audit_launches = phase_lmm_identities(tmp)
+        audit_launches, lmm_ident = phase_lmm_identities(tmp)
+        torch.cuda.empty_cache()
+        phase_mesh_one(tmp, lmm_ident)
         phase_cli(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

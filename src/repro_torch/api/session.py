@@ -18,6 +18,12 @@ independent host processes that share the checkpoint directory.  Results are
 bitwise-identical, completion order is free, and the cell-keyed checkpoint
 is the coordination substrate either way.
 
+Under a sharding mesh (``ScanPlan(mesh=)``: a ``torch.distributed``
+``DeviceMesh``, one process per card) every rank runs the same session on
+the serial walk: rank 0 decides the resume set and broadcasts it, each step
+computes on the rank's blocks and gathers the full tiles, and only rank 0
+commits checkpoint cells and feeds the result writers.
+
 Checkpointing rides the session: each live cell's payload is committed to
 the cell-keyed manifest before the cell is yielded, and on resume the
 committed cells of previous runs are replayed as ``CellResult``s after the
@@ -65,6 +71,15 @@ from repro_torch.runtime.prefetch import (
     double_buffer,
 )
 from repro_torch.runtime.scheduler import CellScheduler
+from repro_torch.runtime.sharding import (
+    broadcast_array,
+    broadcast_object,
+    check_mesh,
+    gather_objects,
+    is_lead,
+    mesh_axes,
+    mesh_device,
+)
 
 __all__ = [
     "CellResult",
@@ -246,6 +261,9 @@ class PreparedScan:
     dof: int
     lmm_info: dict | None
     n_covariates: int
+    # the sharding mesh (None: one device); not part of the fingerprint, so
+    # a checkpoint cut under one mesh resumes under another or none
+    mesh: Any = None
 
     @property
     def n_batches(self) -> int:
@@ -285,22 +303,34 @@ class ScanPlan:
     the lmm engine's streamed GRM, eigendecomposition and REML live here —
     and step construction); ``run()`` prepares and returns the executable
     ``ScanSession``.  A plan may be prepared once and run many times.
+
+    ``mesh`` (a ``DeviceMesh`` with axes ``("data", "model")`` or ``("pod",
+    "data", "model")``) shards every step over its ranks; each rank builds
+    the same plan and runs it.  The device comes from the mesh: a CUDA mesh
+    computes on the rank's current card over NCCL, a CPU mesh on the CPU,
+    and ``config.device`` must name the same kind.  Rank 0 computes what a
+    card's arithmetic could make differ between ranks — the residualized
+    panel and covariate basis, the multivariate whitening, the mixed model's
+    GRM, spectrum, REML and rotation — and every rank receives its bits.
     """
 
     def __init__(self, study: Study, config: ScanConfig, *, mesh: Any = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "sharding meshes arrive with the port's torch.distributed mesh slice"
-            )
+            check_mesh(mesh)
         self.study = study
         self.config = config
+        self.mesh = mesh
         self._prepared: PreparedScan | None = None
 
     def prepare(self) -> PreparedScan:
         if self._prepared is not None:
             return self._prepared
-        study, config = self.study, self.config
-        device = resolve_device(config.device)
+        study, config, mesh = self.study, self.config, self.mesh
+        device = (
+            resolve_device(config.device) if mesh is None
+            else mesh_device(mesh, config.device)
+        )
+        lead = is_lead(mesh)
         engine = get_engine(config.engine)
         n_samples = study.n_samples
         phenotypes = np.asarray(study.phenotypes)
@@ -328,12 +358,21 @@ class ScanPlan:
             # OLS panel prep (Eq. 1), amortized once into a host-side store.
             # Engines that build their own panel (lmm: rotated per LOCO scope
             # in setup_scan) skip it.
-            q = covariate_basis(covariates, n_samples, device=device)
-            panels = PanelStore.residualized(
-                phenotypes, q, trait_blocks,
-                quantum=config.block_p,
-                max_resident=config.panel_resident_blocks,
-            )
+            if lead:
+                q = covariate_basis(covariates, n_samples, device=device)
+                panels = PanelStore.residualized(
+                    phenotypes, q, trait_blocks,
+                    quantum=config.block_p,
+                    max_resident=config.panel_resident_blocks,
+                )
+            if mesh is not None:
+                q = torch.from_numpy(broadcast_array(
+                    q.cpu().numpy() if lead else None, device
+                )).to(device)
+                panel = broadcast_array(panels.host_panel if lead else None, device)
+                if not lead:
+                    panels = PanelStore(trait_blocks, panel, device=device,
+                                        max_resident=config.panel_resident_blocks)
             n_covariates = int(q.shape[1]) - 1
             if config.multivariate:
                 from repro_torch.core import multivariate as mv
@@ -341,9 +380,15 @@ class ScanPlan:
                 # Unblocked by the check above: block 0 is the full panel,
                 # staged on the scan's device, where the P x P Gram product
                 # and its eigendecomposition run.
-                y_full = panels.device_block(trait_blocks[0])
-                whitening, eig = mv.whiten_panel(y_full)
-                n_traits_eff = float(mv.effective_tests(eig))
+                if lead:
+                    y_full = panels.device_block(trait_blocks[0])
+                    whitening, eig = mv.whiten_panel(y_full)
+                    n_traits_eff = float(mv.effective_tests(eig))
+                if mesh is not None:
+                    whitening = torch.from_numpy(broadcast_array(
+                        whitening.cpu().numpy() if lead else None, device
+                    )).to(device)
+                    n_traits_eff = broadcast_object(n_traits_eff)
         else:
             cov = None if covariates is None else np.asarray(covariates)
             n_covariates = 0 if cov is None else (1 if cov.ndim == 1 else cov.shape[1])
@@ -356,6 +401,7 @@ class ScanPlan:
             config.genotype_staging,
             study.source,
             excluded_samples=study.excluded_samples,
+            mesh=mesh,
         )
         if genotype_staging == "packed":
             _configure_packed_cache(config.packed_cache_mb)
@@ -364,6 +410,7 @@ class ScanPlan:
             n_covariates=n_covariates,
             options=config.options,
             device=device,
+            mesh=mesh,
             mode=config.mode,
             hit_threshold=config.hit_threshold_nlp,
             maf_min=config.maf_min,
@@ -413,6 +460,7 @@ class ScanPlan:
             dof=dof,
             lmm_info=lmm_info,
             n_covariates=n_covariates,
+            mesh=mesh,
         )
         return self._prepared
 
@@ -468,8 +516,12 @@ class _Slot:
             self.state = prepared.engine.make_device_state(
                 prepared.ctx, device=device, step=step
             )
+        # Under a mesh the panel blocks stay on the host; each rank's step
+        # moves its own columns (and rows, in sample mode) to the card.
+        self._view_device = torch.device("cpu") if prepared.mesh is not None else device
         self.panels = (
-            prepared.panels.device_view(device) if prepared.panels is not None else None
+            prepared.panels.device_view(self._view_device)
+            if prepared.panels is not None else None
         )
 
     def fence(self) -> None:
@@ -500,7 +552,7 @@ class _Slot:
         # stay on the device after the scan).  The serial slot's view is the
         # store's shared default LRU, deliberately left resident: a warm
         # cache across runs of a plan.
-        if self.panels is not None and self.device is not None:
+        if self.panels is not None and self._view_device is not None:
             self.panels.release()
 
 
@@ -621,7 +673,12 @@ class SerialExecutor:
         self._step = step
 
     def info(self) -> dict:
-        return {"kind": self.kind, "devices": 1, "device": str(self.prepared.device)}
+        out = {"kind": self.kind, "devices": 1, "device": str(self.prepared.device)}
+        mesh = self.prepared.mesh
+        if mesh is not None:
+            out["mesh"] = {"axes": list(mesh_axes(mesh)),
+                           "shape": [int(n) for n in mesh.shape]}
+        return out
 
     def cells(self, todo, pending) -> Iterator[tuple["CellResult", CellTiming]]:
         prep = self.prepared
@@ -1188,6 +1245,22 @@ class ScanSession:
         # count resumes under any other.
         n_visible = torch.cuda.device_count() if prepared.device.type == "cuda" else 1
         self.n_devices = self.config.devices if self.config.devices > 0 else n_visible
+        self.mesh = prepared.mesh
+        if self.mesh is not None:
+            if self.n_devices > 1:
+                raise ValueError(
+                    "the multi-device grid executor and a sharding mesh are "
+                    "exclusive parallelism axes; pass devices=1 with a mesh (or "
+                    "drop the mesh to scale by grid cells)"
+                )
+            if self.config.exec_backend != "threads":
+                # Leases claimed per process would hand the mesh's ranks
+                # different cells, and their collectives would never meet.
+                raise ValueError(
+                    f"exec_backend={self.config.exec_backend!r} claims cells per "
+                    "process; a sharding mesh walks one grid on every rank "
+                    "(use the threads backend)"
+                )
         self.metrics = ScanMetrics(
             n_cells_total=len(self._batches) * prepared.n_trait_blocks
         )
@@ -1203,7 +1276,8 @@ class ScanSession:
                 "pass checkpoint_dir="
             )
         self.checkpoint: ScanCheckpoint | None = None
-        if self.config.checkpoint_dir:
+        # Under a mesh only rank 0 holds the checkpoint (and writes it).
+        if self.config.checkpoint_dir and is_lead(self.mesh):
             self.checkpoint = ScanCheckpoint(
                 self.config.checkpoint_dir,
                 fingerprint=prepared.fingerprint(),
@@ -1325,6 +1399,8 @@ class ScanSession:
             # executor and replayed from their shards below.
             batches_pending = {b for b, _ in pending}
             todo = [b for b in self._batches if b.index in batches_pending]
+        if self.mesh is not None:
+            todo, pending = self._agree_on_grid(todo, pending)
 
         executor = self._make_executor()
         distributed = getattr(executor, "backend", "threads") != "threads"
@@ -1390,12 +1466,34 @@ class ScanSession:
                 yield cell
             self.metrics.finish()
 
+    def _agree_on_grid(self, todo, pending):
+        """Rank 0's cells to compute, on every rank of the mesh, before the
+        walk: each rank must step through the same cells, in the same order,
+        or their collectives would pair different cells.  If any rank's plan
+        differs from the others' (its fingerprint), every rank refuses."""
+        ranks = gather_objects(
+            (self.prepared.fingerprint(), [b.index for b in todo], pending)
+        )
+        prints = [fp for fp, _, _ in ranks]
+        if len(set(prints)) > 1:
+            raise ValueError(
+                f"the ranks' scan plans differ (fingerprints by rank: {prints}); "
+                "every rank of a mesh runs the same plan"
+            )
+        _, todo_idx, pending = ranks[0]
+        by_index = {b.index: b for b in self._batches}
+        return [by_index[i] for i in todo_idx], pending
+
     def stream_to(self, *writers) -> dict:
         """Drive ``events()`` through result writers: open each, feed every
         cell, close in order; abort them all if anything raises.  Returns
-        the merged summary dict of the writers' ``close()`` results."""
+        the merged summary dict of the writers' ``close()`` results.  Under
+        a mesh every rank walks the grid but only rank 0 feeds its writers
+        (the others return ``{}``)."""
         from repro_torch.api.writers import stream_session
 
+        if not is_lead(self.mesh):
+            writers = ()
         return stream_session(self, writers)
 
 

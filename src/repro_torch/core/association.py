@@ -14,7 +14,7 @@ Precision ladder:
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -90,23 +90,38 @@ def standardize_genotype_batch(
     *,
     missing_value: float = -9.0,
     var_tol: float = 1e-10,
+    sample_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    n_samples: int | None = None,
 ) -> tuple[torch.Tensor, MarkerStats]:
     """Standardize a dosage batch ``(M, N)``; missing entries are mean-imputed.
 
     ``missing_value`` marks missing dosages (NaN also works).  The imputed
     value is the per-marker mean, which becomes exactly 0 after
     standardization.  The variance is the population variance.
+
+    ``sample_sum`` is for a batch whose samples are split across ranks (a
+    mesh's ``sample`` mode): it turns each rank's per-marker partial sum over
+    its samples into the total, and ``n_samples`` is the total sample count.
+    Padding samples are missing entries, which add nothing to any sum.
     """
     g = g_raw.to(torch.float32)
     missing = torch.isnan(g) | (g == missing_value)
     present = ~missing
-    n_present_raw = torch.sum(present, dim=1)
-    n_present = torch.clamp(n_present_raw, min=1)
     zero = torch.zeros((), dtype=torch.float32, device=g.device)
-    mean = torch.sum(torch.where(present, g, zero), dim=1) / n_present
+    if sample_sum is None:
+        n_present_raw = torch.sum(present, dim=1)
+        n_present = torch.clamp(n_present_raw, min=1)
+        mean = torch.sum(torch.where(present, g, zero), dim=1) / n_present
+    else:
+        n_present_raw = sample_sum(torch.sum(present, dim=1))
+        n_present = torch.clamp(n_present_raw, min=1)
+        mean = sample_sum(torch.sum(torch.where(present, g, zero), dim=1)) / n_present
     g_imp = torch.where(present, g, mean[:, None])
     dev = g_imp - mean[:, None]
-    var = torch.mean(dev * dev, dim=1)
+    if sample_sum is None:
+        var = torch.mean(dev * dev, dim=1)
+    else:
+        var = sample_sum(torch.sum(dev * dev, dim=1)) / float(n_samples)
     valid = (var > var_tol) & (n_present_raw > 0)
     inv_std = torch.where(valid, torch.rsqrt(torch.clamp(var, min=var_tol)), zero)
     g_std = dev * inv_std[:, None]
@@ -128,6 +143,7 @@ def correlation(
     *,
     precision: str = "fp32",
     trait_tile: int | None = None,
+    sample_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Paper Eq. (2): ``R = G Y / N`` with an explicit precision contract.
 
@@ -152,6 +168,10 @@ def correlation(
         )
     else:
         r = g_std @ y_std
+    if sample_sum is not None:
+        # samples split across ranks: each product is a partial over this
+        # rank's samples (``standardize_genotype_batch``)
+        r = sample_sum(r)
     return r / float(n_samples)
 
 
@@ -163,11 +183,14 @@ def assoc_from_standardized(
     n_covariates: int,
     options: AssocOptions = AssocOptions(),
     trait_tile: int | None = None,
+    sample_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> AssocResult:
     """Association statistics from pre-standardized inputs (both zero-mean,
-    unit population variance); ``(M, N) x (N, P) -> (M, P)``."""
+    unit population variance); ``(M, N) x (N, P) -> (M, P)``.  ``sample_sum``
+    adds the products over samples split across ranks (``correlation``)."""
     r = correlation(
-        g_std, y_std, n_samples, precision=options.precision, trait_tile=trait_tile
+        g_std, y_std, n_samples, precision=options.precision, trait_tile=trait_tile,
+        sample_sum=sample_sum,
     )
     # Standardization guarantees |r| <= 1 up to rounding; clamp so the
     # epilogue stays finite even for degenerate columns.

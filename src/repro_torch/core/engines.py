@@ -15,11 +15,21 @@ PyTorch GEMM over float dosages) and ``fused`` (the hand-written CUDA
 ``gwas_dot`` kernel over 2-bit packed genotypes), and the mixed-model engine
 ``lmm`` (streamed GRM, rotation, then the correlation epilogue; its fused
 epilogue runs the hand-written CUDA t-statistic and screen kernels of
-``kernels/tstat.py``).  Sharding meshes are refused.
+``kernels/tstat.py``).
+
+Each ``build_*_step`` takes an optional ``mesh`` (a ``torch.distributed``
+``DeviceMesh`` with axes ``("data", "model")`` or ``("pod", "data",
+"model")``; ``runtime/sharding.py``).  Under a mesh every rank calls the step
+with the same full inputs; the step cuts this rank's blocks
+(``shard_local``), computes on them, and returns the full output tiles on
+every rank (``gather_full``), as the reference's ``jit`` with in- and
+out-shardings does.  The per-trait winners and hit counts are computed on
+the gathered tiles.  A mesh keeps the dense p-value epilogue.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import time
 from dataclasses import dataclass
@@ -38,6 +48,15 @@ from repro_torch.core.association import (
     standardize_genotype_batch,
 )
 from repro_torch.runtime.prefetch import MarkerBatch, TraitBlock
+from repro_torch.runtime.sharding import (
+    P,
+    axis_size,
+    batch_axes,
+    gather_full,
+    gwas_shardings,
+    shard_local,
+    sum_over,
+)
 
 __all__ = [
     "EngineContext",
@@ -162,6 +181,8 @@ class EngineContext:
     n_covariates: int
     options: AssocOptions
     device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
+    # the sharding mesh (a DeviceMesh; None: one device) and its GWAS mode
+    mesh: Any = None
     mode: str = "mp"
     hit_threshold: float = 7.301
     maf_min: float = 0.0
@@ -202,11 +223,13 @@ def resolve_genotype_staging(
     source: Any,
     *,
     excluded_samples: int = 0,
+    mesh: Any = None,
 ) -> str:
     """Negotiate the staging currency per source.
 
     "auto" picks packed whenever it is exactly equivalent: the source speaks
-    native 2-bit bytes and no host-side sample subsetting applies.
+    native 2-bit bytes, no host-side sample subsetting applies, and no
+    sharding mesh (its shardings are declared over the decoded layout).
     Explicit "packed" raises instead of silently falling back; "dense" is
     always honored.
     """
@@ -221,6 +244,8 @@ def resolve_genotype_staging(
         blockers.append(f"{type(source).__name__} has no native 2-bit layout")
     if excluded_samples:
         blockers.append("relatedness exclusion subsets samples on host")
+    if mesh is not None:
+        blockers.append("sharding mesh stages the decoded layout")
     if not blockers:
         return "packed"
     if requested == "packed":
@@ -315,6 +340,10 @@ class EngineDeviceState:
             )
         self.ctx = ctx
         self.device = ctx.device
+        # Under a mesh the step's arguments stay on the host: each rank's
+        # step moves only its own block to the card (``shard_local``), so a
+        # card holds its share of the batch and panel, not the whole.
+        self._stage_device = torch.device("cpu") if ctx.mesh is not None else ctx.device
         # A fresh step per slot: the one-slot prolog memo inside keys on the
         # staged tensor's identity, which is per device — sharing a step
         # across slots would thrash the memo and race it across threads.
@@ -322,8 +351,8 @@ class EngineDeviceState:
 
     def put(self, arr: Any) -> torch.Tensor:
         """Stage one host array onto this slot's device (asynchronous on
-        CUDA)."""
-        return to_device(arr, self.device)
+        CUDA); under a mesh, into host memory."""
+        return to_device(arr, self._stage_device)
 
     def stage(self, host_batch: HostBatch) -> tuple:
         """Device-resident positional step args for one claimed batch."""
@@ -424,18 +453,44 @@ def _dense_best_and_hits(nlp: torch.Tensor, t: torch.Tensor, hit_threshold: floa
     }
 
 
-def _resolve_sparse(sparse_epilogue, options, hit_threshold, dof, hit_capacity,
+def _resolve_sparse(sparse_epilogue, mesh, options, hit_threshold, dof, hit_capacity,
                     multivariate=False):
     """The sparse epilogue needs a meaningful threshold (plan may refuse), an
-    nlp-producing scan, and no multivariate omnibus (that screen consumes
-    the full r tile in the step; its step keeps the dense epilogue)."""
-    if not sparse_epilogue or multivariate or not options.compute_neglog10p:
+    nlp-producing scan, no sharding mesh (the compaction is data-dependent
+    and does not shard; the multi-device executor is the scaling path that
+    keeps it), and no multivariate omnibus (that screen consumes the full r
+    tile in the step; its step keeps the dense epilogue)."""
+    if (
+        not sparse_epilogue
+        or mesh is not None
+        or multivariate
+        or not options.compute_neglog10p
+    ):
         return None
     return plan_sparse_epilogue(hit_threshold, dof, capacity=hit_capacity)
 
 
 def _masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _pad_to(x: torch.Tensor, dim: int, multiple: int, value) -> torch.Tensor:
+    """``x`` padded with ``value`` along ``dim`` to a multiple of
+    ``multiple`` (``x`` itself when it already is one).  A mesh shards a
+    ragged batch or a narrow trait block this way: padded markers are
+    all-missing (never valid), padded traits and samples are zero."""
+    pad = (-int(x.shape[dim])) % multiple
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], dim=dim)
+
+
+def _gather_tiles(tiles: dict, mesh, spec, m: int, p: int) -> dict:
+    """Every rank's (M, P) output blocks gathered to the full tiles, then
+    trimmed to the unpadded ``(m, p)``."""
+    return {k: gather_full(v, mesh, spec)[:m, :p] for k, v in tiles.items()}
 
 
 def build_dense_step(
@@ -454,6 +509,8 @@ def build_dense_step(
     sparse_epilogue: bool = False,
     hit_capacity: int = 4096,
     packed_input: bool = False,
+    mesh: Any = None,
+    mode: str = "mp",
 ) -> Callable[..., dict[str, torch.Tensor]]:
     """Paper-faithful dense step: float dosages in, summary tiles out.  The
     GEMM is a PyTorch product (``core.association.correlation``); it serves
@@ -476,43 +533,59 @@ def build_dense_step(
     ``multivariate`` adds the panel omnibus (``omnibus``, ``omnibus_nlp``:
     ``S = N * ||r W||^2`` against chi^2 with ``n_traits_eff`` degrees of
     freedom) on the masked r tile, and keeps the dense p-value epilogue.
+
+    ``mesh`` shards the step (module docstring).  ``mode="mp"`` puts markers
+    over the data axes and traits over ``model``: each rank standardizes its
+    rows and multiplies them by its panel columns.  ``mode="sample"`` puts
+    samples over the data axes (the panel as ``(data, model)``): every sum
+    over samples (the marker means and variances, the exact-dof ``g q`` and
+    row variances, the ``g y`` products) becomes a sum across the data ranks
+    in rank order (``sharding.sum_over``).  A batch or panel that does not
+    divide over the mesh is padded (all-missing markers or samples, zero
+    traits) and trimmed after the gather.
     """
+    if packed_input and mesh is not None:
+        raise ValueError("packed_input requires mesh=None (see resolve_genotype_staging)")
     dof = options.dof(n_samples, n_covariates)
-    sparse = _resolve_sparse(sparse_epilogue, options, hit_threshold, dof, hit_capacity,
-                             multivariate=multivariate)
+    sparse = _resolve_sparse(sparse_epilogue, mesh, options, hit_threshold, dof,
+                             hit_capacity, multivariate=multivariate)
     cell_options = (
         dataclasses.replace(options, sparse_epilogue=True) if sparse is not None
         else options
     )
 
-    def prolog(g_raw: torch.Tensor):
+    def prolog(g_raw: torch.Tensor, q=q_basis, sample_sum=None):
         if packed_input:
             from repro_torch.kernels.gwas_dot import ops as kops
 
             g_raw = kops.decode_packed_device(g_raw, n_samples=n_samples)
-        g_std, ms = standardize_genotype_batch(g_raw)
+        g_std, ms = standardize_genotype_batch(
+            g_raw, sample_sum=sample_sum, n_samples=n_samples
+        )
         if options.dof_mode == "exact":
             from repro_torch.core.residualize import residualize_genotypes
 
-            g_std = residualize_genotypes(g_std, q_basis)
+            g_std = residualize_genotypes(g_std, q, sample_sum=sample_sum,
+                                          n_samples=n_samples)
         valid = ms.valid & (ms.maf >= maf_min) if maf_min > 0 else ms.valid
         return g_std, ms.maf, valid
 
-    def cell(g_std, maf, valid, y_std) -> dict[str, torch.Tensor]:
+    def tiles(g_std, valid, y_std, sample_sum=None) -> dict[str, torch.Tensor]:
         res = assoc_from_standardized(
             g_std, y_std, n_samples=n_samples, n_covariates=n_covariates,
-            options=cell_options, trait_tile=trait_tile,
+            options=cell_options, trait_tile=trait_tile, sample_sum=sample_sum,
         )
         mask = valid[:, None]
-        r = _masked(res.r, mask)
-        t = _masked(res.t, mask)
-        out = {"r": r, "t": t, "maf": maf, "valid": valid}
+        out = {"r": _masked(res.r, mask), "t": _masked(res.t, mask)}
+        if sparse is None:
+            out["nlp"] = _masked(res.neglog10p, mask)
+        return out
+
+    def summarize(out: dict) -> dict[str, torch.Tensor]:
         if sparse is not None:
-            out.update(sparse_epilogue_outputs(r, t, dof, sparse))
+            out.update(sparse_epilogue_outputs(out["r"], out["t"], dof, sparse))
         else:
-            nlp = _masked(res.neglog10p, mask)
-            out["nlp"] = nlp
-            out.update(_dense_best_and_hits(nlp, t, hit_threshold))
+            out.update(_dense_best_and_hits(out["nlp"], out["t"], hit_threshold))
         if multivariate:
             from repro_torch.core import multivariate as mv
 
@@ -520,6 +593,12 @@ def build_dense_step(
                 out["r"], n_samples, n_traits_eff, whitening=whitening
             )
         return out
+
+    def cell(g_std, maf, valid, y_std) -> dict[str, torch.Tensor]:
+        return summarize({**tiles(g_std, valid, y_std), "maf": maf, "valid": valid})
+
+    if mesh is not None:
+        return _dense_mesh_step(mesh, mode, prolog, tiles, summarize, q_basis=q_basis)
 
     if not split_prolog:
         return lambda g_raw, y_std: cell(*prolog(g_raw), y_std)
@@ -541,6 +620,51 @@ def build_dense_step(
     return step
 
 
+def _dense_mesh_step(mesh, mode, prolog, tiles, summarize, *, q_basis):
+    """The mesh arm of ``build_dense_step``: ``step(g_raw, y_std)`` on the
+    full batch and panel block, full outputs on every rank; the prolog is
+    memoized per staged batch (the outputs do not depend on it)."""
+    specs = {k: v.spec for k, v in gwas_shardings(mesh, mode=mode).items()}
+    dp = batch_axes(mesh)
+    n_dp, n_mp = axis_size(mesh, dp), axis_size(mesh, "model")
+    nan = float("nan")
+    sample_sum = None
+    q_loc = q_basis
+    if mode == "sample":
+        sample_sum = functools.partial(sum_over, mesh=mesh, axes=dp)
+        if q_basis is not None:
+            q_loc = shard_local(_pad_to(q_basis, 0, n_dp, 0.0), mesh, P(dp, None))
+
+    def mesh_prolog(g_raw):
+        m = int(g_raw.shape[0])
+        if mode == "mp":
+            g_loc = shard_local(_pad_to(g_raw, 0, n_dp, nan), mesh, specs["g"])
+            g_std, maf, valid = prolog(g_loc)
+            vec = specs["marker_vec"]
+            return g_std, valid, gather_full(maf, mesh, vec)[:m], gather_full(valid, mesh, vec)[:m]
+        g_loc = shard_local(_pad_to(g_raw, 1, n_dp, nan), mesh, specs["g"])
+        g_std, maf, valid = prolog(g_loc, q_loc, sample_sum)
+        return g_std, valid, maf, valid
+
+    memo: dict[str, Any] = {"g": None, "out": None}
+
+    def step(g_raw: torch.Tensor, y_std: torch.Tensor) -> dict[str, torch.Tensor]:
+        if memo["g"] is not g_raw:
+            memo["out"] = mesh_prolog(g_raw)
+            memo["g"] = g_raw
+        g_std, valid_loc, maf, valid = memo["out"]
+        y = _pad_to(y_std, 1, n_mp, 0.0)
+        if mode == "sample":
+            y = _pad_to(y, 0, n_dp, 0.0)
+        loc = tiles(g_std, valid_loc, shard_local(y, mesh, specs["y"]), sample_sum)
+        out = _gather_tiles(loc, mesh, specs["out"], int(g_raw.shape[0]), int(y_std.shape[1]))
+        out["maf"], out["valid"] = maf, valid
+        return summarize(out)
+
+    step.reset = lambda: memo.update(g=None, out=None)
+    return step
+
+
 def build_fused_step(
     *,
     n_samples: int,
@@ -554,6 +678,7 @@ def build_fused_step(
     sparse_epilogue: bool = False,
     hit_capacity: int = 4096,
     packed_input: bool = False,
+    mesh: Any = None,
 ) -> Callable[..., dict[str, torch.Tensor]]:
     """Fused step: 2-bit packed slabs in (kernel layout), summary tiles out.
 
@@ -567,14 +692,60 @@ def build_fused_step(
 
     ``packed_input`` takes raw PLINK bytes ``(M, ceil(N/4))`` and performs
     the tile repack on device (a byte shuffle, memoized per staged batch),
-    so host prep is a memcpy plus the LUT marker-stat pass."""
+    so host prep is a memcpy plus the LUT marker-stat pass.
+
+    ``mesh`` ('mp' only: the kernel's epilogue needs each marker's whole
+    sum over samples on one rank) runs the kernel, the mask and the p-values
+    on each rank's ``(M/dp)`` packed rows and ``(P/mp)`` panel columns under
+    ``compat.shard_map``, and the winners on the gathered tiles.  Rows pad
+    with missing codes (``valid=False``), traits with zero columns."""
     from repro_torch.kernels.gwas_dot import ops as kops
     from repro_torch.kernels.gwas_dot.gwas_dot import gwas_dot_fused
 
+    if packed_input and mesh is not None:
+        raise ValueError("packed_input requires mesh=None (see resolve_genotype_staging)")
     dof = options.dof(n_samples, n_covariates)
-    sparse = _resolve_sparse(sparse_epilogue, options, hit_threshold, dof, hit_capacity)
+    sparse = _resolve_sparse(sparse_epilogue, mesh, options, hit_threshold, dof, hit_capacity)
     use_bf16 = input_dtype == "bf16" or (input_dtype is None and options.precision == "bf16")
     kernel_dtype = "bf16" if use_bf16 else "fp32"
+
+    if mesh is not None:
+        from repro_torch.runtime.compat import shard_map
+
+        dp = batch_axes(mesh)
+        n_dp, n_mp = axis_size(mesh, dp), axis_size(mesh, "model")
+
+        def kernel_local(packed, mean2d, inv2d, valid, y):
+            r, t = gwas_dot_fused(
+                packed, mean2d, inv2d, y,
+                n_samples=n_samples, dof=dof, block_n=block_n, block_p=block_p,
+                input_dtype=kernel_dtype, eps=options.eps,
+            )
+            mask = valid[:, None]
+            t = _masked(t, mask)
+            return _masked(r, mask), t, _masked(_stats.neglog10_p_from_t(t, dof), mask)
+
+        tile = P(dp, "model")
+        kernel_fn = shard_map(
+            kernel_local, mesh=mesh,
+            in_specs=(P(dp, None), P(dp, None), P(dp, None), P(dp), P(None, "model")),
+            out_specs=(tile, tile, tile),
+        )
+
+        def mesh_step(packed, mean2d, inv2d, valid, y_std):
+            m, p = int(packed.shape[0]), int(y_std.shape[1])
+            r, t, nlp = kernel_fn(
+                _pad_to(packed, 0, n_dp, 0x55),    # every 2-bit code missing
+                _pad_to(mean2d, 0, n_dp, 0.0),
+                _pad_to(inv2d, 0, n_dp, 0.0),
+                _pad_to(valid, 0, n_dp, False),
+                _pad_to(y_std, 1, n_mp, 0.0),
+            )
+            out = {"r": r[:m, :p], "t": t[:m, :p], "nlp": nlp[:m, :p]}
+            out.update(_dense_best_and_hits(out["nlp"], out["t"], hit_threshold))
+            return out
+
+        return mesh_step
 
     def step(packed, mean2d, inv2d, valid, y_std):
         r, t = gwas_dot_fused(
@@ -626,6 +797,7 @@ def build_lmm_step(
     sparse_epilogue: bool = False,
     hit_capacity: int = 4096,
     packed_input: bool = False,
+    mesh: Any = None,
 ) -> Callable[..., dict[str, torch.Tensor]]:
     """Mixed-model step: standardize -> rotate into the (whitened) GRM
     eigenbasis -> project out the whitened design -> the unchanged
@@ -650,15 +822,22 @@ def build_lmm_step(
     design projection — everything trait-independent) memoized on the
     staged tensor's identity, plus a per-cell *epilogue* (the panel GEMM +
     t/p), so a blocked scan pays the rotation once per marker batch.
+
+    ``mesh`` ('mp' only) runs the prolog on each rank's marker rows (the
+    rotation and ``qhat`` replicated) and the cell on its panel columns; the
+    sparse epilogue is off under a mesh, so ``epilogue="fused"`` runs the
+    t-statistic kernel on each rank's r block.
     """
     if epilogue not in ("dense", "fused"):
         raise ValueError(f"unknown lmm epilogue {epilogue!r}")
+    if packed_input and mesh is not None:
+        raise ValueError("packed_input requires mesh=None (see resolve_genotype_staging)")
     from repro_torch.core.residualize import residualize_genotypes
     from repro_torch.kernels.tstat import screen_compact, tstat
 
     opts = dataclasses.replace(options, dof_mode="exact")
     dof = opts.dof(n_samples, n_covariates)
-    sparse = _resolve_sparse(sparse_epilogue, opts, hit_threshold, dof, hit_capacity)
+    sparse = _resolve_sparse(sparse_epilogue, mesh, opts, hit_threshold, dof, hit_capacity)
     cell_opts = (
         dataclasses.replace(opts, sparse_epilogue=True) if sparse is not None else opts
     )
@@ -674,7 +853,7 @@ def build_lmm_step(
         valid = ms.valid & (ms.maf >= maf_min) if maf_min > 0 else ms.valid
         return g_fin, ms.maf, valid
 
-    def cell(g_fin, maf, valid, y_std) -> dict[str, torch.Tensor]:
+    def cell(g_fin, maf, valid, y_std, summarize: bool = True) -> dict[str, torch.Tensor]:
         mask = valid[:, None]
         screen = None
         nlp = None
@@ -710,8 +889,37 @@ def build_lmm_step(
             out.update(sparse_epilogue_outputs(r, t, dof, sparse, screen=screen))
         else:
             out["nlp"] = nlp
-            out.update(_dense_best_and_hits(nlp, t, hit_threshold))
+            if summarize:
+                out.update(_dense_best_and_hits(nlp, t, hit_threshold))
         return out
+
+    if mesh is not None:
+        specs = {k: v.spec for k, v in gwas_shardings(mesh, mode="mp").items()}
+        n_dp, n_mp = axis_size(mesh, batch_axes(mesh)), axis_size(mesh, "model")
+        vec = specs["marker_vec"]
+
+        def local_prolog(g_raw, rotation, qhat):
+            m = int(g_raw.shape[0])
+            g_loc = shard_local(_pad_to(g_raw, 0, n_dp, float("nan")), mesh, specs["g"])
+            g_fin, maf, valid = prolog(
+                g_loc, shard_local(rotation, mesh, P()), shard_local(qhat, mesh, P())
+            )
+            return g_fin, valid, gather_full(maf, mesh, vec)[:m], gather_full(valid, mesh, vec)[:m]
+
+        def local_cell(g_fin, valid_loc, maf, valid, y_std):
+            y_loc = shard_local(_pad_to(y_std, 1, n_mp, 0.0), mesh, specs["y"])
+            loc = cell(g_fin, maf, valid_loc, y_loc, summarize=False)
+            out = _gather_tiles(
+                {k: loc[k] for k in ("r", "t", "nlp")}, mesh, specs["out"],
+                int(maf.shape[0]), int(y_std.shape[1]),
+            )
+            out["maf"], out["valid"] = maf, valid
+            out.update(_dense_best_and_hits(out["nlp"], out["t"], hit_threshold))
+            return out
+
+        prolog_fn, cell_fn = local_prolog, local_cell
+    else:
+        prolog_fn, cell_fn = prolog, cell
 
     # One-slot memo keyed on the staged genotype tensor's identity (see
     # build_dense_step).
@@ -719,9 +927,9 @@ def build_lmm_step(
 
     def step(g_raw, rotation, qhat, y_std) -> dict[str, torch.Tensor]:
         if memo["g"] is not g_raw:
-            memo["out"] = prolog(g_raw, rotation, qhat)
+            memo["out"] = prolog_fn(g_raw, rotation, qhat)
             memo["g"] = g_raw
-        return cell(*memo["out"], y_std)
+        return cell_fn(*memo["out"], y_std)
 
     step.reset = lambda: memo.update(g=None, out=None)
     return step
@@ -741,6 +949,8 @@ class DenseEngine(ScanEngine):
             n_samples=ctx.n_samples,
             n_covariates=ctx.n_covariates,
             options=ctx.options,
+            mesh=ctx.mesh,
+            mode=ctx.mode,
             hit_threshold=ctx.hit_threshold,
             maf_min=ctx.maf_min,
             q_basis=ctx.q_basis,
@@ -787,6 +997,7 @@ class FusedEngine(ScanEngine):
             n_samples=ctx.n_samples,
             n_covariates=ctx.n_covariates,
             options=ctx.options,
+            mesh=ctx.mesh,
             hit_threshold=ctx.hit_threshold,
             block_m=ctx.block_m,
             block_n=ctx.block_n,
@@ -946,10 +1157,86 @@ class LMMEngine(ScanEngine):
             raise ValueError(f"unknown lmm epilogue {ctx.lmm_epilogue!r}")
 
     def setup_scan(self, source, phenotypes, covariates, ctx: EngineContext):
-        from repro_torch.core.grm import grm_spectrum, spectrum_fingerprint, stream_grm
-        from repro_torch.core.lmm import rotate_panel
+        from repro_torch.core.grm import spectrum_fingerprint
 
         self._trait_blocks = ctx.trait_blocks
+        if ctx.mesh is None:
+            grm_method, spectra, setup_s = self._compute_setup(
+                source, phenotypes, covariates, ctx
+            )
+        else:
+            grm_method, spectra, setup_s = self._mesh_setup(
+                source, phenotypes, covariates, ctx
+            )
+        self._loco = ctx.loco
+        scopes = list(self._scopes)
+        first = next(iter(self._scopes.values()))
+        self._dof = first.dof
+        self._n_cov = first.n_covariates
+        deltas = {sid: p.delta for sid, p in self._scopes.items()}
+        # Deltas enter the fingerprint rounded to the spectrum hash's
+        # significant-digit budget, so last-bit REML jitter is not refused.
+        delta_sig = [(sid, f"{d:.6g}") for sid, d in sorted(deltas.items())]
+        self._fingerprint = f"{spectrum_fingerprint(spectra)}:{delta_sig}"
+        info: dict[str, Any] = {
+            "grm_method": grm_method,
+            "scopes": len(scopes),
+            "loco": ctx.loco,
+            "delta": deltas if ctx.loco else first.delta,
+            "spectrum_hash": spectrum_fingerprint(spectra),
+            "setup_s": setup_s,
+        }
+        if first.reml is not None:
+            info["h2"] = first.reml.h2
+            info["delta_per_trait"] = first.reml.delta
+        return {"dof": self._dof, "info": info}
+
+    def _mesh_setup(self, source, phenotypes, covariates, ctx: EngineContext):
+        """Under a mesh, rank 0 computes the GRM, spectra, REML and rotated
+        panels and every rank receives its bits: two cards' ``eigh`` of one
+        matrix need not agree bit for bit, and ranks holding different
+        rotations would write one scan from two."""
+        from repro_torch.runtime.sharding import broadcast_array, broadcast_object, is_lead
+
+        mesh, device = ctx.mesh, ctx.device
+        lead = is_lead(mesh)
+        spectra: dict[int, np.ndarray] = {}
+        head = None
+        if lead:
+            try:
+                grm_method, spectra, setup_s = self._compute_setup(
+                    source, phenotypes, covariates, ctx
+                )
+            except Exception as e:
+                # every rank waits on the broadcast: fail them all with it
+                broadcast_object(("error", f"{type(e).__name__}: {e}"))
+                raise
+            head = ("ok", grm_method, setup_s, {
+                sid: dataclasses.replace(p, rotation=None, qhat=None, y=None, trait_valid=None)
+                for sid, p in self._scopes.items()
+            })
+        head = broadcast_object(head)
+        if head[0] == "error":
+            raise RuntimeError(f"rank 0 failed the mixed-model set-up: {head[1]}")
+        _, grm_method, setup_s, bare = head
+        own = self._scopes if lead else {}
+        out_spectra: dict[int, np.ndarray] = {}
+        for sid, p in bare.items():
+            out_spectra[sid] = broadcast_array(spectra[sid] if lead else None, device)
+            arrays = {
+                k: broadcast_array(getattr(own[sid], k) if lead else None, device)
+                for k in ("rotation", "qhat", "y", "trait_valid")
+            }
+            self._scopes[sid] = dataclasses.replace(p, **arrays)
+        return grm_method, out_spectra, setup_s
+
+    def _compute_setup(self, source, phenotypes, covariates, ctx: EngineContext):
+        """The GRM pass, each scope's spectrum on the scan's device, and REML
+        and the panel rotation on the host; fills ``self._scopes``.  Returns
+        ``(grm_method, spectra, setup_s)``."""
+        from repro_torch.core.grm import grm_spectrum, stream_grm
+        from repro_torch.core.lmm import rotate_panel
+
         # host seconds per setup stage, summed over scopes (each stage ends
         # in a device-to-host copy, so the host clock covers its device work)
         setup_s = {"grm": 0.0, "spectrum": 0.0, "rotate": 0.0}
@@ -983,27 +1270,7 @@ class LMMEngine(ScanEngine):
             self._scopes[sid] = rotate_panel(phenotypes, covariates, s, u, delta=ctx.lmm_delta)
             setup_s["spectrum"] += t1 - t0
             setup_s["rotate"] += time.perf_counter() - t1
-        self._loco = ctx.loco
-        first = next(iter(self._scopes.values()))
-        self._dof = first.dof
-        self._n_cov = first.n_covariates
-        deltas = {sid: p.delta for sid, p in self._scopes.items()}
-        # Deltas enter the fingerprint rounded to the spectrum hash's
-        # significant-digit budget, so last-bit REML jitter is not refused.
-        delta_sig = [(sid, f"{d:.6g}") for sid, d in sorted(deltas.items())]
-        self._fingerprint = f"{spectrum_fingerprint(spectra)}:{delta_sig}"
-        info: dict[str, Any] = {
-            "grm_method": grm.method,
-            "scopes": len(scopes),
-            "loco": ctx.loco,
-            "delta": deltas if ctx.loco else first.delta,
-            "spectrum_hash": spectrum_fingerprint(spectra),
-            "setup_s": setup_s,
-        }
-        if first.reml is not None:
-            info["h2"] = first.reml.h2
-            info["delta_per_trait"] = first.reml.delta
-        return {"dof": self._dof, "info": info}
+        return grm.method, spectra, setup_s
 
     def state_fingerprint(self) -> str | None:
         return self._fingerprint
@@ -1015,6 +1282,7 @@ class LMMEngine(ScanEngine):
             n_samples=ctx.n_samples,
             n_covariates=self._n_cov,
             options=ctx.options,
+            mesh=ctx.mesh,
             hit_threshold=ctx.hit_threshold,
             maf_min=ctx.maf_min,
             epilogue=ctx.lmm_epilogue,

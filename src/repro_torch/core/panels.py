@@ -113,6 +113,11 @@ class PanelStore:
     def n_blocks(self) -> int:
         return len(self.blocks)
 
+    @property
+    def host_panel(self) -> np.ndarray:
+        """The whole residualized ``(N, P)`` float32 panel, host-side."""
+        return self._panel
+
     def host_block(self, block: TraitBlock) -> np.ndarray:
         return self._panel[:, block.lo : block.hi]
 

@@ -17,7 +17,7 @@ standardization to unit (population) variance.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -107,12 +107,20 @@ def residualize_and_standardize(
 
 
 def residualize_genotypes(g_std: torch.Tensor, q: torch.Tensor, *,
-                          var_tol: float = 1e-10) -> torch.Tensor:
+                          var_tol: float = 1e-10,
+                          sample_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                          n_samples: int | None = None) -> torch.Tensor:
     """FWL 'exact' mode: project covariates out of a standardized genotype
-    batch ``(M, N)`` and re-standardize rows."""
+    batch ``(M, N)`` and re-standardize rows.  With ``sample_sum`` (samples
+    split across ranks; ``q`` holds this rank's rows) the products ``g q``
+    and the row variances are sums across ranks over ``n_samples``."""
     g = g_std.to(torch.float32)
-    g_res = g - (g @ q) @ q.T
-    var = torch.mean(g_res * g_res, dim=1)
+    if sample_sum is None:
+        g_res = g - (g @ q) @ q.T
+        var = torch.mean(g_res * g_res, dim=1)
+    else:
+        g_res = g - sample_sum(g @ q) @ q.T
+        var = sample_sum(torch.sum(g_res * g_res, dim=1)) / float(n_samples)
     valid = var > var_tol
     inv_std = torch.where(valid, torch.rsqrt(torch.clamp(var, min=var_tol)),
                           torch.zeros_like(var))

@@ -16,7 +16,10 @@ the loop lives here.  New code should prefer the API: it streams instead of
 materializing, and its writers keep host memory bounded per grid cell.
 
 The scan runs where ``config.device`` says: ``"cuda"`` by default, ``"cpu"``
-when asked.  ``PanelStore`` lives in ``core.panels`` and ``ScanConfig`` in
+when asked.  ``GenomeScan(mesh=)`` passes a sharding mesh to the plan
+(``ScanPlan(mesh=)``): every rank constructs and runs the shim; rank 0's
+``ScanResult`` is the scan's (the other ranks replay no checkpoint).
+``PanelStore`` lives in ``core.panels`` and ``ScanConfig`` in
 ``api.specs``; both are re-exported here.
 """
 from __future__ import annotations
@@ -87,7 +90,7 @@ class GenomeScan:
 
         study = Study.from_arrays(source, phenotypes, covariates,
                                   exclude_related=cfg.exclude_related)
-        session = study.plan_config(cfg).run()
+        session = study.plan_config(cfg, mesh=mesh).run()
         for cell in session.events(): ...
 
     The shim keeps the historical surface (constructor-time validation and

@@ -1,0 +1,46 @@
+"""``shard_map`` and the token prefix sum on a ``torch.distributed`` mesh.
+
+``shard_map`` runs a function on this rank's blocks of full tensors and
+returns the full outputs on every rank, the counterpart of ``jax.shard_map``
+that the fused step's kernel call goes through.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.runtime.sharding import gather_full, shard_local
+
+__all__ = ["shard_map", "token_prefix_sum"]
+
+
+def shard_map(f: Callable[..., Any], *, mesh, in_specs, out_specs) -> Callable[..., Any]:
+    """``g(*full_args)``: each argument cut to this rank's block by its entry
+    of ``in_specs`` (``shard_local``), ``f`` called on the blocks, and each
+    output gathered back to the full tensor by its entry of ``out_specs``
+    (``gather_full``).  ``f`` may return one tensor, a tuple, or a dict;
+    ``out_specs`` has the same structure."""
+
+    def mapped(*args):
+        if len(args) != len(in_specs):
+            raise ValueError(f"{len(args)} arguments for {len(in_specs)} in_specs")
+        local = [shard_local(a, mesh, s) for a, s in zip(args, in_specs)]
+        out = f(*local)
+        if isinstance(out, dict):
+            return {k: gather_full(v, mesh, out_specs[k]) for k, v in out.items()}
+        if isinstance(out, (tuple, list)):
+            return tuple(gather_full(v, mesh, s) for v, s in zip(out, out_specs))
+        return gather_full(out, mesh, out_specs)
+
+    return mapped
+
+
+def token_prefix_sum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Inclusive prefix sum along ``axis``: ``torch.cumsum``.
+
+    The reference routes this through ``jnp.cumsum`` on old jax because its
+    SPMD partitioner miscompiled ``lax.associative_scan`` over a sharded
+    axis; that fault is jax's own.  Here the tensor is a rank's local one and
+    ``torch.cumsum`` is the plain scan."""
+    return torch.cumsum(x, dim=axis)

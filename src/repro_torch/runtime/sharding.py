@@ -1,0 +1,375 @@
+"""Sharding vocabulary on a ``torch.distributed`` device mesh.
+
+Physical meshes:
+    single pod:  (data, model)          -> axes ("data", "model")
+    multi-pod:   (pod, data, model)     -> axes ("pod", "data", "model")
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with those axis
+names: one process per card (NCCL), or one CPU process per rank (gloo).
+The scan never names physical axes directly; it goes through the helpers
+here, so the same step runs on either mesh.
+
+A ``PartitionSpec`` has one entry per tensor dim: ``None`` (replicated), an
+axis name, or a tuple of names (sharded over their product, the first name
+major).  ``shard_local`` cuts this rank's block out of a full tensor by the
+rank's mesh coordinate and ``gather_full`` puts the full tensor back
+together on every rank; they play the part of ``jit``'s in- and
+out-shardings.  ``sum_over`` adds a partial over mesh axes in rank order, so
+the sum does not depend on the collective library's reduction order.
+
+LM parameters use MaxText-style *logical* axes mapped to physical axes by
+``LogicalAxisRules``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+__all__ = [
+    "PartitionSpec",
+    "P",
+    "NamedSharding",
+    "mesh_axes",
+    "batch_axes",
+    "gwas_shardings",
+    "LogicalAxisRules",
+    "logical_to_sharding",
+    "DEFAULT_RULES",
+    "check_mesh",
+    "mesh_device",
+    "axis_size",
+    "local_device",
+    "shard_local",
+    "gather_full",
+    "sum_over",
+    "is_lead",
+    "broadcast_object",
+    "gather_objects",
+    "broadcast_array",
+    "collective_bytes",
+]
+
+# Bytes this rank received through the step's all-gathers so far (setup
+# broadcasts excluded); reset it by assignment.
+collective_bytes = 0
+
+
+class PartitionSpec(tuple):
+    """Immutable per-dim sharding entries: ``None``, an axis name, or a
+    tuple of axis names.  Trailing dims not named are replicated.  As in
+    jax, a one-name tuple is stored as the name and an empty one as
+    ``None``."""
+
+    def __new__(cls, *entries):
+        def canon(e):
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                return None if not e else (e[0] if len(e) == 1 else e)
+            return e
+
+        return super().__new__(cls, tuple(canon(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's layout on a mesh: the mesh and its ``PartitionSpec``."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+
+def check_mesh(mesh: Any) -> None:
+    """Raise ``TypeError`` unless ``mesh`` is a ``DeviceMesh``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh must be a torch.distributed.device_mesh.DeviceMesh, not "
+            f"{type(mesh).__name__}"
+        )
+
+
+def mesh_axes(mesh) -> tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """All axes that act data-parallel: ('pod', 'data') on multi-pod."""
+    return tuple(a for a in mesh_axes(mesh) if a in ("pod", "data"))
+
+
+def gwas_shardings(mesh, *, mode: str = "mp") -> dict[str, NamedSharding]:
+    """Sharding contract for the association GEMM ``(M,N)x(N,P)->(M,P)``.
+
+    mode="mp" (default): markers over the data axes, phenotypes over model;
+        no collective in the GEMM, only the gather of the output tiles.
+    mode="sample": samples over the data axes (for biobank-scale N); every
+        sum over samples becomes a sum over the data axes (``sum_over``).
+    """
+    dp = batch_axes(mesh)
+    ns = lambda spec: NamedSharding(mesh, spec)
+    if mode == "mp":
+        return {
+            "packed": ns(P(dp, None)),     # (M, N/4) markers sharded
+            "marker_vec": ns(P(dp)),       # per-marker stats
+            "g": ns(P(dp, None)),          # dense (M, N)
+            "y": ns(P(None, "model")),     # panel: phenotypes sharded
+            "out": ns(P(dp, "model")),     # (M, P) fully tiled
+        }
+    if mode == "sample":
+        return {
+            "packed": ns(P(None, dp)),
+            "marker_vec": ns(P()),
+            "g": ns(P(None, dp)),
+            "y": ns(P(dp, "model")),
+            "out": ns(P(None, "model")),
+        }
+    raise ValueError(f"unknown GWAS sharding mode: {mode}")
+
+
+@dataclass(frozen=True)
+class LogicalAxisRules:
+    """Ordered (logical_axis -> physical axes) mapping, first-fit like
+    MaxText: a physical axis is consumed at most once per spec."""
+
+    rules: tuple[tuple[str, tuple[str, ...] | str | None], ...] = ()
+
+    def physical(self, logical: tuple[str | None, ...], mesh) -> PartitionSpec:
+        available = set(mesh_axes(mesh))
+        used: set[str] = set()
+        out: list = []
+        table = dict(self.rules)
+        for ax in logical:
+            if ax is None:
+                out.append(None)
+                continue
+            mapped = table.get(ax)
+            if mapped is None:
+                out.append(None)
+                continue
+            cands = (mapped,) if isinstance(mapped, str) else tuple(mapped)
+            picked = tuple(c for c in cands if c in available and c not in used)
+            used.update(picked)
+            if not picked:
+                out.append(None)
+            elif len(picked) == 1:
+                out.append(picked[0])
+            else:
+                out.append(picked)
+        return P(*out)
+
+
+# Default LM rules: FSDP over the data axes + tensor parallel over "model".
+DEFAULT_RULES = LogicalAxisRules(
+    rules=(
+        ("batch", ("pod", "data")),
+        ("seq", None),                  # sequence stays unsharded by default
+        ("embed", ("data",)),           # FSDP shard of the embedding dim
+        ("heads", ("model",)),
+        ("kv_heads", ("model",)),
+        ("mlp", ("model",)),
+        ("vocab", ("model",)),
+        ("experts", ("model",)),
+        ("expert_mlp", None),
+        ("layers", None),
+        # KV-cache sequence dim: fallback target when kv_heads cannot divide
+        # the model axis (flash-decoding-style partial softmax).
+        ("kv_seq", ("model",)),
+        ("state", ("model",)),          # recurrent state width (RWKV/RG-LRU)
+    )
+)
+
+
+def logical_to_sharding(
+    logical: tuple[str | None, ...], mesh, rules: LogicalAxisRules = DEFAULT_RULES
+) -> NamedSharding:
+    return NamedSharding(mesh, rules.physical(logical, mesh))
+
+
+# ------------------------------------------------------------ placement
+
+
+def mesh_device(mesh, requested: str | torch.device = "cuda") -> torch.device:
+    """The device this rank computes on under ``mesh``.
+
+    A CUDA mesh uses the rank's current card and needs the NCCL backend; a
+    CPU mesh uses the CPU.  A ``requested`` device of the other kind, or a
+    CUDA index other than the current card, raises ``ValueError``: the mesh
+    never moves a scan to another device or backend.
+    """
+    from repro_torch.runtime.device import resolve_device
+
+    check_mesh(mesh)
+    want = torch.device(requested)
+    kind = mesh.device_type
+    if want.type != kind:
+        raise ValueError(
+            f"device={str(requested)!r} but the mesh lies on {kind!r}; a mesh scan "
+            "runs where its mesh was initialized"
+        )
+    if kind == "cpu":
+        return resolve_device("cpu")
+    dev = resolve_device(local_device(mesh))
+    if want.index is not None and want.index != dev.index:
+        raise ValueError(
+            f"device={str(requested)!r} but this rank's current card is {dev}; "
+            "call torch.cuda.set_device before building the mesh"
+        )
+    for name in mesh_axes(mesh):
+        backend = str(dist.get_backend(mesh.get_group(name)))
+        if "nccl" not in backend:
+            raise ValueError(
+                f"a CUDA mesh needs the nccl backend; axis {name!r} runs on {backend!r}"
+            )
+    return dev
+
+
+def _names(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(entry)
+
+
+def axis_size(mesh, names) -> int:
+    """Number of shards over one spec entry (the product of its axes)."""
+    dims = mesh_axes(mesh)
+    return math.prod(int(mesh.shape[dims.index(n)]) for n in _names(names))
+
+
+def _axis_index(mesh, names: tuple[str, ...]) -> int:
+    dims = mesh_axes(mesh)
+    coord = mesh.get_coordinate()
+    idx = 0
+    for n in names:
+        d = dims.index(n)
+        idx = idx * int(mesh.shape[d]) + int(coord[d])
+    return idx
+
+
+def local_device(mesh) -> torch.device:
+    """This rank's device under ``mesh``: its current card on a CUDA mesh,
+    the CPU on a CPU mesh."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def shard_local(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of the full tensor ``x`` under ``spec``, contiguous,
+    on the rank's device (``local_device``): a full tensor held on the host
+    crosses to the card as this block only.  A sharded dim must divide
+    evenly by its number of shards."""
+    out = x
+    for dim, entry in enumerate(spec):
+        names = _names(entry)
+        if not names:
+            continue
+        n = axis_size(mesh, names)
+        size = int(x.shape[dim])
+        if size % n:
+            raise ValueError(
+                f"dim {dim} of size {size} does not divide over {names} ({n} shards)"
+            )
+        step = size // n
+        out = out.narrow(dim, _axis_index(mesh, names) * step, step)
+    return out.contiguous().to(local_device(mesh))
+
+
+def _gather_cat(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
+    """``all_gather`` over one mesh axis, concatenated along ``dim`` in
+    coordinate order."""
+    global collective_bytes
+    n = axis_size(mesh, name)
+    if n == 1:
+        return x
+    is_bool = x.dtype == torch.bool
+    src = (x.to(torch.uint8) if is_bool else x).contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=mesh.get_group(name))
+    collective_bytes += (n - 1) * src.numel() * src.element_size()
+    out = torch.cat(parts, dim=dim)
+    return out.to(torch.bool) if is_bool else out
+
+
+def gather_full(x_local: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The full tensor on every rank from each rank's block under ``spec``:
+    one ``all_gather`` per sharded axis (the innermost axis of an entry
+    first), concatenated in coordinate order."""
+    out = x_local
+    for dim, entry in enumerate(spec):
+        for name in reversed(_names(entry)):
+            out = _gather_cat(out, mesh, name, dim)
+    return out
+
+
+def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum of every rank's partial ``x`` over the mesh ``axes``, identical
+    on each rank: the partials are gathered and added in rank order (the
+    first axis major), never by an ``all_reduce`` whose order is the
+    library's choice."""
+    names = _names(axes)
+    if axis_size(mesh, names) == 1:
+        return x
+    stack = x.unsqueeze(0)
+    for name in reversed(names):
+        stack = _gather_cat(stack, mesh, name, 0)
+    acc = stack[0]
+    for part in stack[1:]:
+        acc = acc + part
+    return acc
+
+
+# ------------------------------------------------------ rank-0 decisions
+
+
+def is_lead(mesh) -> bool:
+    """Whether this process is global rank 0, the rank that decides the
+    scan's set-up and writes its files."""
+    return mesh is None or dist.get_rank() == 0
+
+
+def broadcast_object(obj: Any) -> Any:
+    """Rank 0's ``obj`` (picklable; small) on every rank of the world."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def gather_objects(obj: Any) -> list:
+    """Every rank's ``obj`` (picklable; small), in rank order, on every
+    rank of the world."""
+    out: list = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def broadcast_array(arr: np.ndarray | None, device: torch.device) -> np.ndarray:
+    """Rank 0's host array, bit for bit, on every rank of the world: its
+    shape and dtype as an object, then the bytes through ``device`` (the
+    card under NCCL)."""
+    meta = broadcast_object(None if arr is None else (arr.shape, arr.dtype.str))
+    shape, dtype = meta
+    nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    if arr is not None and dist.get_rank() == 0:
+        raw = np.ascontiguousarray(arr).view(np.uint8).reshape(-1)
+        buf = torch.from_numpy(raw.copy()).to(device)
+    else:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    if nbytes:
+        dist.broadcast(buf, src=0)
+    if arr is not None and dist.get_rank() == 0:
+        return arr
+    return buf.cpu().numpy().view(np.dtype(dtype)).reshape(shape)

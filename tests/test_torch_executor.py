@@ -161,8 +161,8 @@ def test_exec_spec_roundtrip_and_fingerprint_free():
 
 
 def test_plan_no_longer_refuses_the_executor(study, tmp_path):
-    """``devices != 1`` and ``shared-fs`` plan and run; mesh and the
-    multivariate screen stay refused (``tests/test_torch_scan.py``)."""
+    """``devices != 1`` and ``shared-fs`` plan and run; with a sharding
+    mesh both are refused (``tests/test_torch_mesh.py``)."""
     _plan(study, grid=_grid(), executor=ExecSpec(devices=2)).run()
     _plan(study, grid=_grid(), checkpoint_dir=str(tmp_path),
           executor=ExecSpec(backend="shared-fs")).run()

@@ -239,16 +239,17 @@ def test_cuda_device_without_a_card_raises(cohort_files):
         study.plan(engine="fused").prepare()
 
 
-@pytest.mark.parametrize("what", ["mesh", "multivariate"])
-def test_unported_paths_raise_not_implemented(what, cohort_files, tmp_path):
-    """Sharding meshes are not ported.  The multivariate screen is (it
-    prepares on the dense engine), but not on a mesh: it refuses one the
-    same way."""
+@pytest.mark.parametrize("what", ["fused", "multivariate"])
+def test_plan_rejects_a_non_mesh(what, cohort_files, tmp_path):
+    """A mesh is a ``torch.distributed`` ``DeviceMesh`` (the sharded scans
+    run in ``tests/test_torch_mesh.py``); any other object is refused with a
+    ``TypeError`` when the plan is made, on the fused engine and on the
+    dense multivariate screen alike."""
     study = Study.from_files(cohort_files["bed"], cohort_files["pheno"], cohort_files["cov"])
     if what == "multivariate":
         assert study.plan(engine="dense", device="cpu", multivariate=True).prepare().ctx.multivariate
-    with pytest.raises(NotImplementedError):
-        if what == "mesh":
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        if what == "fused":
             study.plan(engine="fused", device="cpu", mesh=object())
         elif what == "multivariate":
             study.plan(engine="dense", device="cpu", multivariate=True, mesh=object())
@@ -322,7 +323,8 @@ def test_port_imports_neither_jax_nor_reference():
     # and at run time: importing the whole port loads neither package
     code = (
         "import sys, repro_torch.api, repro_torch.launch.gwas, repro_torch.kernels.build,"
-        " repro_torch.serve;"
+        " repro_torch.serve, repro_torch.runtime.sharding, repro_torch.runtime.compat,"
+        " repro_torch.runtime.compression;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
         "assert not bad, bad"
     )
