@@ -115,8 +115,30 @@ Phases, each printing one JSON line:
                   over HTTP, a panel upload equal to the CLI scan's tables
                   and a window query equal to its rows, then ``POST
                   /shutdown`` and exit 0
+  lm_parity       the LM wing: every arch of ``LM_ARCHS`` at ``reduced()`` in
+                  float32, the same weights (``init_model`` on the CPU from a
+                  seeded generator, copied to the card) through
+                  ``build_prefill_step`` and 4 decode steps on the CPU and on
+                  the card: logits within 1e-4 * max |logit|, cache positions
+                  and the MoE routing integers (with and without dropped
+                  tokens) bitwise
+  lm_serve        gemma2-9b whole (42 layers, d_model 3,584, 9.24 B
+                  parameters in bfloat16), drawn on the card from a seeded
+                  generator and served through ``build_prefill_step`` /
+                  ``build_decode_step``: 4 requests of 1,024 prompt tokens
+                  and 32 greedy decode steps (prefill_s, decode ms per step
+                  (median, p95), tokens/s, peak memory, the decode and
+                  prefill bounds); prefill and decode against the forward at
+                  B=2, S=256; a 4,160-token request whose 21 local rings wrap,
+                  8 decode steps, each against the forward
+  lm_families     each LM arch at full width, depth cut to one repeat of its
+                  block pattern (whisper whole, MoE capacity permissive): B=2,
+                  S=64 prefill and 4 decode steps against the forward;
+                  parameter bytes, prefill and decode times (each arch's
+                  first calls); each model freed before the next
 
-Each path's launch counts are set to 0 just before it runs and read just
+The LM phases launch none of the repo's kernels: each reads the counts and
+fails unless all are 0.  Each path's launch counts are set to 0 just before it runs and read just
 after.  Then come a ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device it exits 1 and prints no result.
@@ -125,7 +147,8 @@ exits non-zero; without a CUDA device it exits 1 and prints no result.
 
 runs the device phase and the named phases among ``build``, ``kernel`` and
 ``kernel_tstat`` only (a quick check of the kernels); it prints neither the
-``kernels`` line nor the ``ok`` line.  On a machine with two or more cards,
+``kernels`` line nor the ``ok`` line.  ``--only lm_serve`` (and
+``lm_parity``, ``lm_families``) runs one LM phase alone the same way.  On a machine with two or more cards,
 
     python3 chip_smoke.py --only build,devices
 
@@ -147,6 +170,7 @@ the mesh resumed with no mesh byte-equal to the serial tables.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -238,6 +262,19 @@ MESH_CUT_CELLS = 2
 # dense-engine oracle tolerances (tests/test_oracle.py): r, t (rel, abs),
 # nlp (rel, abs)
 DENSE_TOL = (2e-5, (2e-4, 2e-4), (2e-3, 5e-3))
+# The LM wing.  lm_parity: every arch at reduced() in float32, CPU vs card,
+# logits within 1e-4 * max |logit|.  lm_serve: gemma2-9b whole
+# (src/repro/configs/gemma2_9b.py): 4 requests of 1,024 prompt tokens into
+# caches of 1,056 positions, 32 greedy decode steps; the forward identity at
+# B=2, S=256; a prompt of 4,160 > local_window 4,096 with 8 decode steps.
+# lm_families: every arch at full width, one repeat of its pattern.  The
+# forward identities hold max |d| <= 5e-2 * max |logit| in bfloat16 (the
+# reference's test_prefill_decode_consistency bound, made relative).
+LM_PARITY = dict(batch=2, seq=12, steps=4, seed=2026, rel=1e-4)
+LM_SERVE = dict(arch="gemma2-9b", batch=4, prompt=1024, capacity=1056, steps=32, seed=2026,
+                consist_batch=2, consist_len=256, wrap_prompt=4160, wrap_steps=8,
+                rel_bound=5e-2, profile_steps=4)
+LM_FAMILIES = dict(batch=2, seq=64, steps=4, seed=2026, rel_bound=5e-2)
 
 
 def emit(obj: dict) -> None:
@@ -2257,6 +2294,390 @@ def phase_mesh(tmp: str) -> dict:
     return rows
 
 
+# ------------------------------------------------------------ the LM wing
+
+def _lm_config(arch: str):
+    """An LM arch's full configuration (the CPU rehearsal of these phases
+    swaps in ``reduced()``)."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch)
+
+
+def _permissive(cfg):
+    """MoE capacity at n_experts, as the reference's tests: no token is
+    dropped, so prefill/decode equal the forward at the same positions."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+def _lm_launches(phase: str) -> dict:
+    """The LM path runs none of the repo's kernels: every count is 0."""
+    launches = read_launches()
+    check(not any(launches.values()), f"{phase}: kernels launched on the LM path: {launches}")
+    return launches
+
+
+def _max_rel(got, want) -> float:
+    """max |got - want| / max |want| over float32 copies."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _oracle_logits(cfg, model, batch: dict, positions: list):
+    """The full-sequence forward's logits at ``positions`` only: the final
+    hidden states (``train_hidden``) through the head at those positions,
+    so the (B, S, V) float32 logits never exist at once."""
+    import torch
+
+    from repro_torch.models import api as M
+
+    with torch.inference_mode():
+        hidden, _ = M.train_hidden(cfg, model, batch)
+        picked = hidden[:, positions]
+        del hidden
+        return M.apply_head(cfg, model, picked).float()
+
+
+def _serve_seq(cfg, model, prompt: dict, cont, capacity: int, oracle_batch: dict) -> dict:
+    """Prefill ``prompt``, then decode the tokens ``cont`` (B, n) one by one
+    (teacher forced) through the serve steps; each step's logits against the
+    forward over the whole sequence at the same position.  Returns the
+    largest ``max |d| / max |ref|`` and the caches."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.layers import NEG_INF
+    from repro_torch.train import build_decode_step, build_prefill_step
+
+    b, n = cont.shape
+    s = _prompt_len(cfg, prompt)
+    shape = ShapeConfig("serve", seq_len=capacity, global_batch=b, kind="prefill")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = build_prefill_step(cfg, shape)(model, prompt)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = [logits]
+    decode = build_decode_step(cfg, shape)
+    for i in range(n):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=DEVICE)
+        logits, caches = decode(model, cont[:, i], pos, caches)
+        got.append(logits)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    want = _oracle_logits(cfg, model, oracle_batch, list(range(s - 1, s + n)))
+    v = cfg.vocab                      # the padded columns hold NEG_INF
+    errs = [_max_rel(g[:, :v], want[:, i, :v]) for i, g in enumerate(got)]
+    check(all(bool((g[:, v:] == NEG_INF).all()) for g in got), "the vocab pad columns are not masked")
+    return {"max_rel_err": max(errs), "per_step": errs, "caches": caches,
+            "prefill_s": t1 - t0, "decode_ms": 1e3 * (t2 - t1) / max(n, 1)}
+
+
+def _device_profile(fn, calls: int) -> dict:
+    """``calls`` calls of ``fn`` under ``torch.profiler`` (CPU and CUDA
+    activity): wall time, the card's kernel time (one stream: kernels do not
+    overlap) and kernels per call.  ``device_busy_share`` is kernel time over
+    wall time; None when the trace holds no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    return {"wall_ms": 1e3 * wall / calls, "device_ms": busy_us / 1e3 / calls,
+            "kernels_per_call": len(kernels) / calls,
+            "device_busy_share": busy_us / 1e6 / wall if kernels else None}
+
+
+def _prompt_len(cfg, batch: dict) -> int:
+    if cfg.family == "encdec":
+        return batch["tokens"].shape[1]
+    return batch["positions"].shape[-1]
+
+
+def _lm_batches(cfg, b: int, s: int, n: int, seed: int):
+    """A prompt of ``s`` positions (``make_batch``; vlm: half of them stub
+    patches), ``n`` continuation tokens, and the whole sequence for the
+    forward, all on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import make_batch
+
+    prompt = make_batch(cfg, ShapeConfig("prompt", s, b, "prefill"), 0, seed=seed)
+    prompt.pop("labels")
+    cont = np.random.default_rng(seed + 1).integers(0, cfg.vocab, (b, n)).astype(np.int32)
+    full = dict(prompt, tokens=np.concatenate([prompt["tokens"], cont], axis=1))
+    if "positions" in prompt:
+        lead = prompt["positions"].shape[:-1]
+        full["positions"] = np.broadcast_to(np.arange(s + n, dtype=np.int32), (*lead, s + n)).copy()
+    on = lambda d: {k: torch.as_tensor(v, device=DEVICE) for k, v in d.items()}  # noqa: E731
+    return on(prompt), torch.as_tensor(cont, device=DEVICE), on(full)
+
+
+def phase_lm_parity() -> dict:
+    """Every LM arch at ``reduced()`` in float32: the same weights on the CPU
+    and the card, prefill and decode through the serve steps on both; the
+    card's logits within LM_PARITY["rel"] of the CPU's, cache positions and
+    MoE routing integers bitwise."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import LM_ARCHS, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import LayerCache
+    from repro_torch.train import build_decode_step, build_prefill_step, make_batch
+
+    p = LM_PARITY
+    reset_launches()
+    rows = {}
+    t_start = time.perf_counter()
+    for arch in LM_ARCHS:
+        cfg = _permissive(dataclasses.replace(get_config(arch).reduced(), dtype="float32"))
+        gen = torch.Generator(device="cpu").manual_seed(p["seed"])
+        cpu_model = M.init_model(cfg, generator=gen, device="cpu", max_positions=64)
+        card_model = copy.deepcopy(cpu_model).to(DEVICE)
+        shape = ShapeConfig("serve", seq_len=p["seq"] + p["steps"], global_batch=p["batch"],
+                            kind="prefill")
+        batch = make_batch(cfg, ShapeConfig("prompt", p["seq"], p["batch"], "prefill"), 0,
+                           seed=p["seed"])
+        batch.pop("labels")
+        prefill, decode = build_prefill_step(cfg, shape), build_decode_step(cfg, shape)
+        lc, cc = prefill(cpu_model, batch)
+        lg, cg = prefill(card_model, batch)
+        v = cfg.vocab
+        errs = [_max_rel(lg[:, :v], lc[:, :v])]
+        s = _prompt_len(cfg, batch)
+        for i in range(p["steps"]):
+            token = torch.argmax(lc, dim=-1).to(torch.int32)
+            pos = torch.full((p["batch"],), s + i, dtype=torch.int32)
+            lc, cc = decode(cpu_model, token, pos, cc)
+            lg, cg = decode(card_model, token.to(DEVICE), pos.to(DEVICE), cg)
+            errs.append(_max_rel(lg[:, :v], lc[:, :v]))
+        caches = [c["self"] if isinstance(c, dict) and "self" in c else c for c in cc]
+        caches_g = [c["self"] if isinstance(c, dict) and "self" in c else c for c in cg]
+        positions_equal = all(torch.equal(a.positions, b.positions.cpu())
+                              for a, b in zip(caches, caches_g) if isinstance(a, LayerCache))
+        row = {"max_rel_err": max(errs), "positions_equal": positions_equal}
+        if cfg.moe is not None:
+            layer = next(blk for blk in cpu_model.layers if blk.moe is not None)
+            h = torch.randn((p["batch"] * p["seq"], cfg.d_model), generator=gen)
+            probs = torch.softmax(h @ layer.moe.router, dim=-1)
+            dropping = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+            routes_equal, dropped = True, 0
+            for c in (cfg, dropping):
+                want, _ = moe_mod.moe_route(c, probs)
+                got, _ = moe_mod.moe_route(c, probs.to(DEVICE))
+                for a, b in zip(want, got):
+                    routes_equal &= all(torch.equal(x, y.cpu()) for x, y in
+                                        ((a.dest_e, b.dest_e), (a.dest_c, b.dest_c), (a.keep, b.keep)))
+                    dropped += int((~a.keep).sum()) if c is dropping else 0
+            x = h.reshape(p["batch"], p["seq"], cfg.d_model)
+            with torch.inference_mode():
+                out_c, _ = moe_mod.moe_layer(dropping, layer.moe, x)
+                card_layer = next(blk for blk in card_model.layers if blk.moe is not None)
+                out_g, _ = moe_mod.moe_layer(dropping, card_layer.moe, x.to(DEVICE))
+            row.update(routes_equal=routes_equal, dropped=dropped,
+                       moe_drop_max_rel_err=_max_rel(out_g, out_c))
+            check(routes_equal, f"lm_parity {arch}: MoE routes differ between the CPU and the card")
+            check(dropped > 0, f"lm_parity {arch}: the dropping capacity dropped no token")
+            check(row["moe_drop_max_rel_err"] <= p["rel"], f"lm_parity {arch}: MoE with drops {row}")
+        check(row["max_rel_err"] <= p["rel"], f"lm_parity {arch}: logits differ {row}")
+        check(positions_equal, f"lm_parity {arch}: cache positions differ")
+        rows[arch] = row
+        del cpu_model, card_model, cc, cg
+    emit({"phase": "lm_parity", "rel_bound": p["rel"], "archs": rows,
+          "launches": _lm_launches("lm_parity"), "wall_s": time.perf_counter() - t_start})
+    return rows
+
+
+def phase_lm_serve() -> dict:
+    """gemma2-9b at full width and depth on the card, served through
+    ``build_prefill_step`` / ``build_decode_step``: four requests of a
+    1,024-token prompt and 32 greedy decode steps (times, peak memory, the
+    bounds), prefill/decode against the forward at B=2, S=256, and one
+    request whose prompt overflows the 4,096-slot local rings."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api as M
+    from repro_torch.models.layers import LayerCache
+    from repro_torch.models.transformer import _layer_kinds
+    from repro_torch.train import build_decode_step, build_prefill_step, make_batch
+
+    p = LM_SERVE
+    cfg = _lm_config(p["arch"])
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(p["seed"])
+    model = M.init_model(cfg, generator=gen, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in model.parameters())
+    param_bytes = _param_bytes(model)
+
+    # (1) the requests
+    b, s, cap, steps = p["batch"], p["prompt"], p["capacity"], p["steps"]
+    shape = ShapeConfig("serve", seq_len=cap, global_batch=b, kind="prefill")
+    batch = make_batch(cfg, ShapeConfig("prompt", s, b, "prefill"), 0, seed=p["seed"])
+    batch.pop("labels")
+    prefill, decode = build_prefill_step(cfg, shape), build_decode_step(cfg, shape)
+    prefill_times = []
+    for _ in range(2):           # the first call pays cuBLAS's start-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, caches = prefill(model, batch)
+        torch.cuda.synchronize()
+        prefill_times.append(time.perf_counter() - t0)
+    step_s = []
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    for i in range(steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=DEVICE)
+        t0 = time.perf_counter()
+        logits, caches = decode(model, token, pos, caches)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(logits[:, : cfg.vocab]).all()), "lm_serve: non-finite decode logits")
+    # where a step's time goes: the card's kernel time against the wall
+    state = {"caches": caches, "token": token, "pos": s + steps}
+
+    def one_step():
+        pos = torch.full((b,), state["pos"], dtype=torch.int32, device=DEVICE)
+        logits, state["caches"] = decode(model, state["token"], pos, state["caches"])
+        state["token"] = torch.argmax(logits, dim=-1).to(torch.int32)
+        state["pos"] += 1
+
+    decode_profile = _device_profile(one_step, p["profile_steps"])
+    caches = state["caches"]
+    del state
+    prefill_profile = _device_profile(lambda: prefill(model, batch), 1)
+    cache_bytes = sum(c.k.numel() * c.k.element_size() + c.v.numel() * c.v.element_size()
+                      for c in caches)
+    del caches, logits
+    # Least times: decode reads every weight once (the tied head reads the
+    # whole table; the embedding gather is 4 rows) and every k/v slot of every
+    # layer; prefill does 2 FLOP per weight per token outside the embedding
+    # (the head runs on the last token only) plus the dense QK^T and PV over
+    # all S x S pairs, in bf16 on the tensor cores.
+    hd, heads = cfg.resolved_head_dim, cfg.n_heads
+    embed = cfg.padded_vocab * cfg.d_model
+    prefill_flops = (2.0 * b * s * (n_params - embed) + 4.0 * b * heads * s * s * hd * cfg.n_layers
+                     + 2.0 * b * embed)
+    decode_bound_ms, decode_bound_by = bytes_bound(param_bytes + cache_bytes, 2.0 * b * n_params,
+                                                   BF16_FLOPS)
+    prefill_bound_ms, prefill_bound_by = bytes_bound(param_bytes, prefill_flops, BF16_FLOPS)
+    step_ms = sorted(1e3 * t for t in step_s)
+    row = {
+        "phase": "lm_serve", "arch": cfg.arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": n_params, "param_bytes": param_bytes, "init_s": init_s,
+        "batch": b, "prompt": s, "cache_capacity": cap, "decode_steps": steps,
+        "prefill_s": prefill_times[1], "prefill_first_s": prefill_times[0],
+        "prefill_bound_ms": prefill_bound_ms, "prefill_bound_by": prefill_bound_by,
+        "prefill_flops": prefill_flops,
+        "decode_ms_median": statistics.median(step_ms),
+        "decode_ms_p95": step_ms[min(len(step_ms) - 1, math.ceil(0.95 * len(step_ms)) - 1)],
+        "decode_ms_first": 1e3 * step_s[0],
+        "tokens_per_s": b * steps / sum(step_s),
+        "decode_bound_ms": decode_bound_ms, "decode_bound_by": decode_bound_by,
+        "decode_bound_bytes": param_bytes + cache_bytes, "peak_bytes": peak,
+        "decode_profile": decode_profile, "prefill_profile": prefill_profile,
+    }
+
+    # (2) prefill and the first decode against the forward, B=2, S=256
+    bound = p["rel_bound"]
+    prompt, cont, full = _lm_batches(cfg, p["consist_batch"], p["consist_len"], 1, p["seed"])
+    res = _serve_seq(cfg, model, prompt, cont, p["consist_len"] + 8, full)
+    row["consistency"] = {"batch": p["consist_batch"], "prompt": p["consist_len"],
+                          "max_rel_err": res["max_rel_err"], "bound": bound}
+    check(res["max_rel_err"] <= bound, f"lm_serve: prefill/decode vs forward {row['consistency']}")
+    del res, prompt, cont, full
+    torch.cuda.empty_cache()
+
+    # (3) one request longer than the local window: the local rings wrap
+    n = p["wrap_steps"]
+    prompt, cont, full = _lm_batches(cfg, 1, p["wrap_prompt"], n, p["seed"] + 7)
+    res = _serve_seq(cfg, model, prompt, cont, p["wrap_prompt"] + n, full)
+    rings = [c for c, kind in zip(res["caches"], _layer_kinds(cfg)) if kind == "local"]
+    check(all(isinstance(c, LayerCache) and c.k.shape[1] == cfg.local_window for c in rings),
+          "lm_serve: the local layers' rings do not hold local_window slots")
+    oldest = min(int(c.positions.min()) for c in rings)
+    last = p["wrap_prompt"] + n - 1
+    check(oldest == last - cfg.local_window + 1,
+          f"lm_serve: the rings hold positions from {oldest}, not the last {cfg.local_window}")
+    row["wrap"] = {"prompt": p["wrap_prompt"], "local_window": cfg.local_window, "steps": n,
+                   "local_layers": len(rings), "oldest_position_in_rings": oldest,
+                   "max_rel_err": res["max_rel_err"], "per_step": res["per_step"], "bound": bound}
+    check(res["max_rel_err"] <= bound, f"lm_serve: the wrapped request vs forward {row['wrap']}")
+    row["launches"] = _lm_launches("lm_serve")
+    del res, model
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+def phase_lm_families() -> dict:
+    """Each LM arch at its full width, depth cut to one repeat of its
+    ``block_pattern`` (whisper whole), MoE capacity permissive: prefill and
+    decode against the forward, parameter bytes and times.  Each model is
+    freed before the next."""
+    import torch
+
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.models import api as M
+
+    p = LM_FAMILIES
+    reset_launches()
+    rows = {}
+    for arch in LM_ARCHS:
+        cfg = _lm_config(arch)
+        if cfg.family != "encdec":
+            cfg = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))
+        cfg = _permissive(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=DEVICE).manual_seed(p["seed"])
+        t0 = time.perf_counter()
+        model = M.init_model(cfg, generator=gen, device=DEVICE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompt, cont, full = _lm_batches(cfg, p["batch"], p["seq"], p["steps"], p["seed"])
+        res = _serve_seq(cfg, model, prompt, cont, p["seq"] + p["steps"], full)
+        row = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "params": sum(t.numel() for t in model.parameters()),
+               "param_bytes": _param_bytes(model), "init_s": init_s,
+               "prefill_s": res["prefill_s"], "decode_ms": res["decode_ms"],
+               "max_rel_err": res["max_rel_err"], "peak_bytes": torch.cuda.max_memory_allocated()}
+        check(row["max_rel_err"] <= p["rel_bound"], f"lm_families {arch}: {row}")
+        rows[arch] = row
+        del model, res, prompt, cont, full
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_families", "batch": p["batch"], "seq": p["seq"], "steps": p["steps"],
+          "rel_bound": p["rel_bound"], "archs": rows, "launches": _lm_launches("lm_families")})
+    return rows
+
+
 def _scan_study(files: dict):
     import numpy as np
 
@@ -2278,7 +2699,9 @@ def _in_tmp(phase):
 
 
 QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": phase_kernel_tstat,
-                "devices": _in_tmp(phase_devices), "mesh": _in_tmp(phase_mesh)}
+                "devices": _in_tmp(phase_devices), "mesh": _in_tmp(phase_mesh),
+                "lm_parity": phase_lm_parity, "lm_serve": phase_lm_serve,
+                "lm_families": phase_lm_families}
 
 
 def main(argv: list[str]) -> int:
@@ -2327,6 +2750,9 @@ def main(argv: list[str]) -> int:
         phase_cli(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_lm_parity()
+    phase_lm_serve()
+    phase_lm_families()
     kernels = [{
         "name": "gwas_dot",
         "route": "cuda",
