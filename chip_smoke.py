@@ -136,6 +136,31 @@ Phases, each printing one JSON line:
                   S=64 prefill and 4 decode steps against the forward;
                   parameter bytes, prefill and decode times (each arch's
                   first calls); each model freed before the next
+  lm_train_parity every arch at ``reduced()`` in float32, the same weights
+                  and ``make_batch`` batch on the CPU and the card: one train
+                  step's loss within 1e-5 and each gradient within 1e-4 *
+                  max |g| (rwkv6-3b: 1e-3, its gradient is ill-conditioned);
+                  a second identical pass on the card compared bitwise (which
+                  gradients differ, if any); ``adamw_update`` on the CPU's
+                  gradients on both devices within 1e-6; remat "full" and
+                  "dots" on the card within 1e-6 of "none"
+  lm_train_families  each arch at full width, one repeat of its pattern
+                  (whisper whole), B=2, S=64: train steps at remat "none"
+                  (first, warm) and "full" from the same weights, losses
+                  within 1e-3, finite, grad_norm > 0, parameters moved; times
+                  and peak memory; arctic-480b forward and backward only (its
+                  float32 AdamW state does not fit on one card)
+  lm_train        granite-moe-1b-a400m whole (24 layers, 32 experts top-8,
+                  1.38e9 parameters): 8 AdamW steps of B=4, S=4,096 (remat
+                  "dots", loss_chunk 1,024, float32 m/v), a checkpoint after
+                  step 4; first, median and p95 step times, tokens/s, peak
+                  memory, the FLOP bound (``launch.roofline.model_flops`` at
+                  989 TFLOP/s) and the step's share of it; two identical
+                  passes compared bitwise; one step under ``torch.profiler``
+                  (kernels, busy share, top kernels); one step with bfloat16
+                  m/v (its peak); the checkpoint restored into a fresh model
+                  and steps 5-7 rerun, equal to the uninterrupted run (bitwise
+                  when the two passes were)
 
 The LM phases launch none of the repo's kernels: each reads the counts and
 fails unless all are 0.  Each path's launch counts are set to 0 just before it runs and read just
@@ -148,7 +173,8 @@ exits non-zero; without a CUDA device it exits 1 and prints no result.
 runs the device phase and the named phases among ``build``, ``kernel`` and
 ``kernel_tstat`` only (a quick check of the kernels); it prints neither the
 ``kernels`` line nor the ``ok`` line.  ``--only lm_serve`` (and
-``lm_parity``, ``lm_families``) runs one LM phase alone the same way.  On a machine with two or more cards,
+``lm_parity``, ``lm_families``, ``lm_train_parity``, ``lm_train_families``,
+``lm_train``) runs one LM phase alone the same way.  On a machine with two or more cards,
 
     python3 chip_smoke.py --only build,devices
 
@@ -275,6 +301,18 @@ LM_SERVE = dict(arch="gemma2-9b", batch=4, prompt=1024, capacity=1056, steps=32,
                 consist_batch=2, consist_len=256, wrap_prompt=4160, wrap_steps=8,
                 rel_bound=5e-2, profile_steps=4)
 LM_FAMILIES = dict(batch=2, seq=64, steps=4, seed=2026, rel_bound=5e-2)
+# LM training.  Parity: one step at reduced() in float32 on the CPU and the
+# card; rwkv6-3b's gradient is ill-conditioned (float32 rounding amplified
+# ~100x in any two implementations; tests/test_torch_train_parity.py), so its
+# gradients and grad_norm are held at 1e-3.
+LM_TRAIN_PARITY = dict(batch=4, seq=32, seed=2026, loss_rel=1e-5, grad_rel=1e-4,
+                       ill_conditioned={"rwkv6-3b": 1e-3}, opt_rel=1e-6, remat_rel=1e-6)
+LM_TRAIN_FAMILIES = dict(batch=2, seq=64, seed=2026, rel_bound=1e-3,
+                         no_optimizer=("arctic-480b",))
+# granite-moe-1b-a400m whole: train_4k's S=4,096 with the global batch cut
+# from 256 to 4; a checkpoint after 5 steps, resumed for steps 5-7.
+LM_TRAIN = dict(arch="granite-moe-1b-a400m", batch=4, seq=4096, steps=8, resume_at=5,
+                remat="dots", loss_chunk=1024, seed=2026)
 
 
 def emit(obj: dict) -> None:
@@ -2380,11 +2418,12 @@ def _serve_seq(cfg, model, prompt: dict, cont, capacity: int, oracle_batch: dict
             "prefill_s": t1 - t0, "decode_ms": 1e3 * (t2 - t1) / max(n, 1)}
 
 
-def _device_profile(fn, calls: int) -> dict:
+def _device_profile(fn, calls: int, top: int = 0) -> dict:
     """``calls`` calls of ``fn`` under ``torch.profiler`` (CPU and CUDA
     activity): wall time, the card's kernel time (one stream: kernels do not
     overlap) and kernels per call.  ``device_busy_share`` is kernel time over
-    wall time; None when the trace holds no kernel."""
+    wall time; None when the trace holds no kernel.  With ``top``, the
+    ``top`` kernel names by card time (ms per call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2398,9 +2437,15 @@ def _device_profile(fn, calls: int) -> dict:
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    return {"wall_ms": 1e3 * wall / calls, "device_ms": busy_us / 1e3 / calls,
-            "kernels_per_call": len(kernels) / calls,
-            "device_busy_share": busy_us / 1e6 / wall if kernels else None}
+    out = {"wall_ms": 1e3 * wall / calls, "device_ms": busy_us / 1e3 / calls,
+           "kernels_per_call": len(kernels) / calls,
+           "device_busy_share": busy_us / 1e6 / wall if kernels else None}
+    if top:
+        by_name: dict = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+        out["top_kernels_ms"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    return out
 
 
 def _prompt_len(cfg, batch: dict) -> int:
@@ -2678,6 +2723,316 @@ def phase_lm_families() -> dict:
     return rows
 
 
+def _rel(got, want) -> float:
+    """|got - want| / |want| for scalars (0 when both are 0)."""
+    got, want = float(got), float(want)
+    return abs(got - want) / abs(want) if want else abs(got)
+
+
+def _leaf_errs(got: dict, want: dict) -> dict:
+    """Per tensor: max |got - want| / max |want| (float32 copies on the CPU)."""
+    return {k: _max_rel(got[k], want[k]) for k in want}
+
+
+def _on(batch: dict, device) -> dict:
+    import torch
+
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _grads_differ(a: dict, b: dict) -> list:
+    """Names of the gradients that are not bitwise equal."""
+    import torch
+
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+
+def phase_lm_train_parity() -> dict:
+    """Every LM arch at ``reduced()`` in float32: the same weights and batch
+    on the CPU and the card, one train step's loss and gradients (remat
+    "none") against each other, a second identical step on the card against
+    the first (bitwise or not, and which gradients differ), ``adamw_update``
+    on the CPU's gradients on both devices, and remat "full"/"dots" on the
+    card against "none"."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import LM_ARCHS, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api as M
+    from repro_torch.train import make_batch
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init, adamw_update, decay_mask,
+                                             global_norm)
+    from repro_torch.train.train_step import TrainStepConfig, loss_and_grads
+
+    p = LM_TRAIN_PARITY
+    reset_launches()
+    rows = {}
+    t_start = time.perf_counter()
+    for arch in LM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        gen = torch.Generator(device="cpu").manual_seed(p["seed"])
+        cpu_model = M.init_model(cfg, generator=gen, device="cpu", max_positions=64)
+        card_model = copy.deepcopy(cpu_model).to(DEVICE)
+        batch = make_batch(cfg, ShapeConfig("t", p["seq"], p["batch"], "train"), 0, seed=p["seed"])
+        cpu_b, card_b = _on(batch, "cpu"), _on(batch, DEVICE)
+        tcfg = TrainStepConfig()
+        lc, mc, gc = loss_and_grads(cfg, tcfg, cpu_model, cpu_b)
+        lg, mg, gg = loss_and_grads(cfg, tcfg, card_model, card_b)
+        lg2, _, gg2 = loss_and_grads(cfg, tcfg, card_model, card_b)
+        differ = _grads_differ(gg, gg2)
+        errs = _leaf_errs(gg, gc)
+        worst = max(errs, key=errs.get)
+        row = {"loss": float(lc), "loss_rel_err": _rel(lg, lc),
+               "xent_rel_err": _rel(mg["xent"], mc["xent"]),
+               "moe_aux_rel_err": _rel(mg["moe_aux"], mc["moe_aux"]),
+               "grad_max_rel_err": errs[worst], "grad_worst_leaf": worst,
+               "grad_norm_rel_err": _rel(global_norm(gg.values()), global_norm(gc.values())),
+               "repeat_bitwise": not differ and bool(torch.equal(lg, lg2)),
+               "repeat_differing_grads": differ}
+        # AdamW on the CPU's gradients, on both devices (two steps)
+        ocfg = AdamWConfig(lr=1e-2, warmup_steps=1)
+        decay = decay_mask(cfg, cpu_model)
+        states = {}
+        for dev, model in (("cpu", cpu_model), (DEVICE, card_model)):
+            params = {k: t.detach().clone() for k, t in model.named_parameters()}
+            opt = adamw_init(ocfg, params)
+            for _ in range(2):
+                _, opt, _ = adamw_update(ocfg, {k: g.to(dev) for k, g in gc.items()}, opt, params,
+                                         decay=decay)
+            states[dev] = (params, opt)
+        (pc, oc), (pg, og) = states["cpu"], states[DEVICE]
+        row["adamw_max_rel_err"] = max(max(_leaf_errs(pg, pc).values()),
+                                       max(_leaf_errs(og.m, oc.m).values()),
+                                       max(_leaf_errs(og.v, oc.v).values()))
+        for remat in ("full", "dots"):
+            lr_, _, _ = loss_and_grads(cfg, TrainStepConfig(remat=remat), card_model, card_b)
+            row[f"remat_{remat}_loss_rel_err"] = _rel(lr_, lg)
+        grad_rel = p["ill_conditioned"].get(arch, p["grad_rel"])
+        row["grad_bound"] = grad_rel
+        check(max(row["loss_rel_err"], row["xent_rel_err"], row["moe_aux_rel_err"]) <= p["loss_rel"],
+              f"lm_train_parity {arch}: loss {row}")
+        check(row["grad_max_rel_err"] <= grad_rel, f"lm_train_parity {arch}: gradients {row}")
+        check(row["grad_norm_rel_err"] <= p["ill_conditioned"].get(arch, p["loss_rel"]),
+              f"lm_train_parity {arch}: grad_norm {row}")
+        check(row["adamw_max_rel_err"] <= p["opt_rel"], f"lm_train_parity {arch}: adamw {row}")
+        check(max(row["remat_full_loss_rel_err"], row["remat_dots_loss_rel_err"]) <= p["remat_rel"],
+              f"lm_train_parity {arch}: remat {row}")
+        rows[arch] = row
+        del cpu_model, card_model, gc, gg, gg2, states
+    emit({"phase": "lm_train_parity", "bounds": {k: v for k, v in p.items() if k != "seed"},
+          "archs": rows, "launches": _lm_launches("lm_train_parity"),
+          "wall_s": time.perf_counter() - t_start})
+    return rows
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_lm_train_families() -> dict:
+    """Each LM arch at full width, depth cut to one repeat of its
+    ``block_pattern`` (whisper whole), B=2, S=64: one train step at remat
+    "none" (first call, then warm) and one at "full" from the same weights;
+    the losses agree, are finite, ``grad_norm`` > 0 and the parameters
+    moved.  arctic-480b runs the forward and backward only (its AdamW state
+    would not fit on one card).  Each model is freed before the next."""
+    import torch
+
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api as M
+    from repro_torch.train import make_batch
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, global_norm
+    from repro_torch.train.train_step import TrainStepConfig, build_train_step, loss_and_grads
+
+    p = LM_TRAIN_FAMILIES
+    reset_launches()
+    rows = {}
+    t_start = time.perf_counter()
+    for arch in LM_ARCHS:
+        cfg = _lm_config(arch)
+        if cfg.family != "encdec":
+            cfg = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=DEVICE).manual_seed(p["seed"])
+        model = M.init_model(cfg, generator=gen, device=DEVICE)
+        batch = _on(make_batch(cfg, ShapeConfig("t", p["seq"], p["batch"], "train"), 0,
+                               seed=p["seed"]), DEVICE)
+        row = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "params": sum(t.numel() for t in model.parameters()),
+               "param_bytes": _param_bytes(model)}
+        if arch in p["no_optimizer"]:
+            losses, times = [], []
+            for remat in ("none", "none", "full"):
+                (loss, _, grads), dt = _timed(lambda: loss_and_grads(
+                    cfg, TrainStepConfig(remat=remat), model, batch))
+                losses.append(loss)
+                times.append(dt)
+                gnorm = global_norm(grads.values())
+                del grads
+            row.update(optimizer=False, moved=None)
+        else:
+            snapshot = {k: t.detach().clone() for k, t in model.named_parameters()}
+            losses, times = [], []
+            for remat in ("none", "none", "full"):
+                with torch.no_grad():
+                    for k, t in model.named_parameters():
+                        t.copy_(snapshot[k])
+                opt = adamw_init(AdamWConfig(), model)
+                step = build_train_step(cfg, tcfg=TrainStepConfig(remat=remat))
+                (_, _, metrics), dt = _timed(lambda: step(model, opt, batch))
+                losses.append(metrics["loss"])
+                times.append(dt)
+                gnorm = metrics["grad_norm"]
+                del opt
+            moved = max(float((t.detach().float() - snapshot[k].float()).abs().max())
+                        for k, t in model.named_parameters())
+            row.update(optimizer=True, moved=moved)
+            del snapshot
+        row.update(loss=float(losses[0]), warm_loss_rel_err=_rel(losses[1], losses[0]),
+                   full_loss_rel_err=_rel(losses[2], losses[0]), grad_norm=float(gnorm),
+                   first_step_s=times[0], warm_step_s=times[1], full_step_s=times[2],
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        check(math.isfinite(row["loss"]) and row["grad_norm"] > 0, f"lm_train_families {arch}: {row}")
+        check(max(row["warm_loss_rel_err"], row["full_loss_rel_err"]) <= p["rel_bound"],
+              f"lm_train_families {arch}: remat losses {row}")
+        check(row["moved"] is None or row["moved"] > 0, f"lm_train_families {arch}: nothing moved")
+        rows[arch] = row
+        del model, batch, losses
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_train_families", "batch": p["batch"], "seq": p["seq"],
+          "rel_bound": p["rel_bound"], "archs": rows, "launches": _lm_launches("lm_train_families"),
+          "wall_s": time.perf_counter() - t_start})
+    return rows
+
+
+def phase_lm_train() -> dict:
+    """granite-moe-1b-a400m whole on the card: 8 AdamW steps of B=4, S=4,096
+    (remat "dots", ``loss_chunk`` 1,024, float32 m/v) on ``make_batch``'s
+    steps 0-7, a checkpoint written after step 4; step times, tokens/s, peak
+    memory and the FLOP bound (``launch.roofline.model_flops``); two
+    identical forward/backward passes compared bitwise; one step under
+    ``torch.profiler``; one step with bfloat16 m/v (its peak); then the
+    checkpoint restored into a fresh model and steps 5-7 run again, equal to
+    the uninterrupted run's."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.roofline import HW, model_flops, param_count
+    from repro_torch.launch.train import flatten_state, restore_state
+    from repro_torch.models import api as M
+    from repro_torch.runtime.checkpoint import TrainCheckpoint
+    from repro_torch.train import make_batch
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import (TrainStepConfig, build_train_step, init_train_state,
+                                              loss_and_grads)
+
+    p = LM_TRAIN
+    cfg = _lm_config(p["arch"])
+    shape = ShapeConfig("train_4k", p["seq"], p["batch"], "train")
+    tcfg = TrainStepConfig(remat=p["remat"], loss_chunk=p["loss_chunk"])
+    batches = [_on(make_batch(cfg, shape, i), DEVICE) for i in range(p["steps"] + 2)]
+    torch.cuda.empty_cache()
+    reset_launches()
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (model, opt), init_s = _timed(lambda: init_train_state(
+        cfg, tcfg, torch.Generator(device=DEVICE).manual_seed(p["seed"]), device=DEVICE,
+        max_positions=p["seq"]))
+    n_params = sum(t.numel() for t in model.parameters())
+    step = build_train_step(cfg, tcfg=tcfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ckpt = TrainCheckpoint(tmp)
+        losses, step_s, save_s = [], [], None
+        for i in range(p["steps"]):
+            (_, opt, metrics), dt = _timed(lambda: step(model, opt, batches[i]))
+            losses.append(float(metrics["loss"]))
+            step_s.append(dt)
+            check(math.isfinite(losses[-1]), f"lm_train: non-finite loss at step {i}")
+            if i + 1 == p["resume_at"]:
+                _, save_s = _timed(lambda: ckpt.save(i + 1, flatten_state(cfg, model, opt)))
+        peak = torch.cuda.max_memory_allocated()
+        final = {k: t.detach().to("cpu", copy=True) for k, t in model.named_parameters()}
+        # two identical forward/backward passes
+        l1, _, g1 = loss_and_grads(cfg, tcfg, model, batches[p["steps"]])
+        l2, _, g2 = loss_and_grads(cfg, tcfg, model, batches[p["steps"]])
+        differ = _grads_differ(g1, g2)
+        bitwise = not differ and bool(torch.equal(l1, l2))
+        del g1, g2
+        profile = _device_profile(lambda: step(model, opt, batches[p["steps"]]), 1, top=8)
+        # bfloat16 m/v
+        del opt
+        torch.cuda.empty_cache()
+        tcfg16 = dataclasses.replace(tcfg, optimizer=AdamWConfig(state_dtype="bfloat16"))
+        opt16 = adamw_init(tcfg16.optimizer, model)
+        step16 = build_train_step(cfg, tcfg=tcfg16)
+        torch.cuda.reset_peak_memory_stats()
+        (_, _, m16), bf16_step_s = _timed(lambda: step16(model, opt16, batches[p["steps"] + 1]))
+        bf16_peak = torch.cuda.max_memory_allocated()
+        del model, opt16
+        torch.cuda.empty_cache()
+        # resume: a fresh model and state from the checkpoint, steps 5-7 again
+        fresh = M.init_model(cfg, generator=None, device=DEVICE, max_positions=p["seq"])
+        fresh_opt = adamw_init(tcfg.optimizer, fresh)
+        (start, flat), load_s = _timed(ckpt.restore)
+        fresh_opt = restore_state(cfg, fresh, fresh_opt, flat)
+        del flat
+        check(start == p["resume_at"] and int(fresh_opt.count) == start,
+              f"lm_train: resumed at {start}, count {int(fresh_opt.count)}")
+        resumed = []
+        for i in range(start, p["steps"]):
+            _, fresh_opt, metrics = step(fresh, fresh_opt, batches[i])
+            resumed.append(float(metrics["loss"]))
+        param_diff = max(_max_rel(t.detach(), final[k]) for k, t in fresh.named_parameters())
+        del fresh, fresh_opt, final
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    loss_diff = max(_rel(a, b) for a, b in zip(resumed, losses[start:]))
+    flops = model_flops(cfg, shape)
+    hw = HW()
+    bound_ms = 1e3 * flops / hw.peak_flops
+    warm = sorted(1e3 * t for t in step_s[1:])
+    median_ms = statistics.median(warm)
+    row = {
+        "phase": "lm_train", "arch": cfg.arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": n_params, "param_count": param_count(cfg), "batch": p["batch"], "seq": p["seq"],
+        "tokens_per_step": p["batch"] * p["seq"], "remat": p["remat"], "loss_chunk": p["loss_chunk"],
+        "init_s": init_s, "losses": losses, "first_step_s": step_s[0],
+        "step_ms_median": median_ms,
+        "step_ms_p95": warm[min(len(warm) - 1, math.ceil(0.95 * len(warm)) - 1)],
+        "tokens_per_s": p["batch"] * p["seq"] / (median_ms / 1e3),
+        "peak_bytes": peak, "model_flops": flops, "bound_ms": bound_ms,
+        "bound_by": "operations (bf16 at 989 TFLOP/s)", "share_of_bound": bound_ms / median_ms,
+        "checkpoint_save_s": save_s, "checkpoint_load_s": load_s,
+        "repeat_bitwise": bitwise, "repeat_differing_grads": differ,
+        "profile": profile, "bf16_state_step_s": bf16_step_s, "bf16_state_peak_bytes": bf16_peak,
+        "bf16_state_loss": float(m16["loss"]),
+        "resumed_from": start, "resumed_losses": resumed, "resumed_loss_max_rel_err": loss_diff,
+        "resumed_param_max_rel_err": param_diff,
+    }
+    if bitwise:
+        check(loss_diff == 0.0 and param_diff == 0.0, f"lm_train: resumed run differs {row}")
+    else:   # the parity tolerance on the loss; parameters within two bf16 steps of a leaf's max
+        check(loss_diff <= LM_TRAIN_PARITY["loss_rel"] and param_diff <= 2.0 ** -7,
+              f"lm_train: resumed run differs {row}")
+    check(math.isfinite(row["bf16_state_loss"]), f"lm_train: bf16 state step {row}")
+    row["launches"] = _lm_launches("lm_train")
+    row["wall_s"] = time.perf_counter() - t_start
+    emit(row)
+    return row
+
+
 def _scan_study(files: dict):
     import numpy as np
 
@@ -2701,7 +3056,8 @@ def _in_tmp(phase):
 QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": phase_kernel_tstat,
                 "devices": _in_tmp(phase_devices), "mesh": _in_tmp(phase_mesh),
                 "lm_parity": phase_lm_parity, "lm_serve": phase_lm_serve,
-                "lm_families": phase_lm_families}
+                "lm_families": phase_lm_families, "lm_train_parity": phase_lm_train_parity,
+                "lm_train_families": phase_lm_train_families, "lm_train": phase_lm_train}
 
 
 def main(argv: list[str]) -> int:
@@ -2753,6 +3109,9 @@ def main(argv: list[str]) -> int:
     phase_lm_parity()
     phase_lm_serve()
     phase_lm_families()
+    phase_lm_train_parity()
+    phase_lm_train_families()
+    phase_lm_train()
     kernels = [{
         "name": "gwas_dot",
         "route": "cuda",

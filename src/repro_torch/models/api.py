@@ -48,22 +48,25 @@ def abstract_params(cfg: ModelConfig, *, max_positions: int = 4096):
     return init_model(cfg, generator=None, device="meta", max_positions=max_positions)
 
 
-def train_logits(cfg: ModelConfig, params, batch: dict):
-    """-> (logits (B, S, V), moe_aux)."""
+def train_logits(cfg: ModelConfig, params, batch: dict, *, remat_policy=None):
+    """-> (logits (B, S, V), moe_aux).  ``remat_policy`` checkpoints each
+    repeat of the block pattern (the encoder-decoder takes none, as in the
+    reference)."""
     if cfg.family == "encdec":
         logits = E.forward_train(cfg, params, batch["frames"], batch["tokens"])
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
     return T.forward_train(cfg, params, batch.get("tokens"), batch["positions"],
-                           extra_embeds=batch.get("vision_embeds"))
+                           extra_embeds=batch.get("vision_embeds"), remat_policy=remat_policy)
 
 
-def train_hidden(cfg: ModelConfig, params, batch: dict):
-    """-> (final-normed hidden (B, S, d), moe_aux)."""
+def train_hidden(cfg: ModelConfig, params, batch: dict, *, remat_policy=None):
+    """-> (final-normed hidden (B, S, d), moe_aux) for the chunked loss."""
     if cfg.family == "encdec":
         h = E.forward_train(cfg, params, batch["frames"], batch["tokens"], return_hidden=True)
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
     return T.forward_train(cfg, params, batch.get("tokens"), batch["positions"],
-                           extra_embeds=batch.get("vision_embeds"), return_hidden=True)
+                           extra_embeds=batch.get("vision_embeds"), remat_policy=remat_policy,
+                           return_hidden=True)
 
 
 def apply_head(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:

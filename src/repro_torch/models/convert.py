@@ -1,5 +1,5 @@
-"""Carry-over of weights and caches between the reference's pytrees and the
-port's modules.
+"""Carry-over of weights, optimizer state and caches between the
+reference's pytrees and the port's modules.
 
 The reference stacks each pattern position's parameters (and caches) over
 the layer repeats: ``params["pattern"][pos]`` has a leading ``repeats``
@@ -7,8 +7,12 @@ axis, ``params["tail"]`` is unstacked, and whisper's ``encoder``/``decoder``
 are stacked over all their layers.  The port keeps one module (and one
 cache) per layer in layer order.  These functions take and give numpy
 arrays (bfloat16 arrays as numpy's ``bfloat16`` extension dtype, which the
-reference's arrays convert to), so the tests can carry a reference model
-across and compare caches; the port itself never needs them.
+reference's arrays convert to, or as the raw 2-byte ``|V2`` words that
+``np.load`` gives back for them), so the tests can carry a reference model
+across and compare gradients and caches.  The port itself needs the
+reference's layout twice: its checkpoints use the reference's flat keys
+(``reference_flat``, ``load_reference_flat``), and AdamW decays a
+parameter by its rank there (``reference_ndims``).
 """
 from __future__ import annotations
 
@@ -21,13 +25,16 @@ from repro_torch.models import api as M
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import stack_geometry
 
-__all__ = ["params_from_jax", "caches_from_jax", "caches_to_numpy", "load_params", "to_torch"]
+__all__ = ["params_from_jax", "params_to_numpy", "opt_state_to_numpy", "caches_from_jax",
+           "caches_to_numpy", "load_params", "to_torch", "reference_keys", "reference_ndims",
+           "reference_flat", "load_reference_flat"]
 
 
 def to_torch(arr, device) -> torch.Tensor:
-    """A numpy array (bfloat16 included, bit for bit) -> tensor on ``device``."""
+    """A numpy array (bfloat16 included, bit for bit, whether as the
+    extension dtype or as ``|V2`` words) -> tensor on ``device``."""
     arr = np.array(arr)   # a writable copy: the reference's arrays are read-only
-    if arr.dtype.name == "bfloat16":
+    if arr.dtype.name == "bfloat16" or arr.dtype == np.dtype("V2"):
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
 
@@ -36,6 +43,15 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor -> numpy; bfloat16 widens exactly to float32."""
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _to_bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> numpy with bfloat16 kept bit for bit as ``|V2`` words,
+    the bytes ``np.savez`` writes for the reference's bfloat16 arrays."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
 
 
 def load_params(module: nn.Module, tree: dict, index=None) -> int:
@@ -86,6 +102,116 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *, device="cuda") -> nn.Module
         raise ValueError(f"copied {n} of the port's {total} parameters")
     return model
 
+
+# ------------------------------------------------- the reference's flat layout
+
+def reference_keys(cfg: ModelConfig, model: nn.Module) -> dict[str, tuple[str, int | None]]:
+    """Each parameter of the port by name -> (its key in the reference's
+    pytree, as ``repro.launch.train.flatten_state`` writes it, and its index
+    on the reference's stacked axis, None where the reference keeps it
+    unstacked).  ``layers.3.attn.wq`` of a 2-position pattern repeated
+    twice is (``pattern/[1]/attn/wq``, 1); whisper's ``encoder.0.ln1`` is
+    (``encoder/ln1``, 0)."""
+    reps, _ = stack_geometry(cfg)
+    k = len(cfg.block_pattern)
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        rest = "/".join(parts[2:])
+        if parts[0] == "layers":
+            i = int(parts[1])
+            out[name] = ((f"pattern/[{i % k}]/{rest}", i // k) if i < reps * k
+                         else (f"tail/[{i - reps * k}]/{rest}", None))
+        elif parts[0] in ("encoder", "decoder"):
+            out[name] = (f"{parts[0]}/{rest}", int(parts[1]))
+        else:
+            out[name] = ("/".join(parts), None)
+    return out
+
+
+def reference_ndims(cfg: ModelConfig, model: nn.Module) -> dict[str, int]:
+    """Each parameter's rank in the reference's layout: one more than the
+    port's where the reference stacks it."""
+    keys = reference_keys(cfg, model)
+    return {name: p.dim() + (keys[name][1] is not None) for name, p in model.named_parameters()}
+
+
+def reference_flat(cfg: ModelConfig, model: nn.Module, tensors: dict, *,
+                   bits: bool = False) -> dict[str, np.ndarray]:
+    """Tensors keyed by the port's parameter names (the parameters, their
+    gradients, AdamW's m or v) -> numpy arrays under the reference's flat
+    keys, stacked where the reference stacks.  ``bits`` keeps bfloat16 as
+    ``|V2`` words (checkpoints); else it widens to float32 (comparisons)."""
+    conv = _to_bits if bits else _to_numpy
+    groups: dict[str, list] = {}
+    for name, (key, idx) in reference_keys(cfg, model).items():
+        groups.setdefault(key, []).append((idx, tensors[name]))
+    out = {}
+    for key, items in groups.items():
+        if items[0][0] is None:
+            out[key] = conv(items[0][1])
+        else:
+            items.sort(key=lambda item: item[0])
+            out[key] = np.stack([conv(t) for _, t in items])
+    return out
+
+
+def load_reference_flat(cfg: ModelConfig, model: nn.Module, flat: dict, targets: dict) -> None:
+    """Copy the reference's flat arrays into ``targets`` (tensors keyed by
+    the port's parameter names), each cast to its target's dtype, as the
+    reference's ``unflatten_like`` casts to its leaves'."""
+    with torch.no_grad():
+        for name, (key, idx) in reference_keys(cfg, model).items():
+            src = np.asarray(flat[key])
+            dst = targets[name]
+            src = src[idx] if idx is not None else src
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{key}: shape {src.shape} != the port's {tuple(dst.shape)}")
+            dst.copy_(to_torch(src, dst.device))
+
+
+def _nest(flat: dict) -> dict:
+    """Flat ``a/[0]/b`` keys -> nested dicts and lists (the reference's
+    pytree)."""
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.startswith("[") for k in node):
+            return [lists(node[f"[{i}]"]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def params_to_numpy(cfg: ModelConfig, model: nn.Module, tensors: dict | None = None) -> dict:
+    """The port's parameters (or ``tensors`` keyed by parameter name, such
+    as gradients) -> the reference's parameter pytree, numpy leaves,
+    bfloat16 widened to float32: the inverse of ``params_from_jax``."""
+    tensors = dict(model.named_parameters()) if tensors is None else tensors
+    tree = _nest(reference_flat(cfg, model, tensors))
+    if cfg.family != "encdec":   # the reference keeps both lists, empty or not
+        tree.setdefault("pattern", [])
+        tree.setdefault("tail", [])
+    return tree
+
+
+def opt_state_to_numpy(cfg: ModelConfig, model: nn.Module, state):
+    """An ``OptState`` of the port -> the same ``OptState`` with m and v as
+    the reference's pytrees and ``count`` as a numpy int32."""
+    return state._replace(m=params_to_numpy(cfg, model, state.m),
+                          v=params_to_numpy(cfg, model, state.v),
+                          count=_to_numpy(state.count))
+
+
+# ------------------------------------------------------------------- caches
 
 def _cache_from(c, device, index=None):
     pick = (lambda a: to_torch(np.asarray(a)[index], device)) if index is not None \

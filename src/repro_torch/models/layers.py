@@ -12,11 +12,13 @@ attention logits to float32 before the scale.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 
@@ -28,7 +30,9 @@ NEG_INF = -2.0e38
 def normal_param(shape, scale: float, *, dtype, device, generator) -> nn.Parameter:
     """N(0, 1) * ``scale`` drawn from ``generator`` (on ``device``); with no
     generator the storage is left unset (a ``meta`` model, or one whose
-    values are about to be copied in)."""
+    values are about to be copied in).  Parameters take no gradient until
+    the train step turns it on (``model.requires_grad_(True)``): serving
+    needs none."""
     t = torch.empty(shape, dtype=dtype, device=device)
     if generator is not None:
         t.normal_(generator=generator).mul_(scale)
@@ -64,6 +68,26 @@ def proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def proj_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")``: x (b, s, h, k) by w (h, k, d)."""
     return x.reshape(*x.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+
+
+# ------------------------------------------------------------ remat policies
+# A policy is the ``context_fn`` of ``torch.utils.checkpoint.checkpoint``:
+# what a checkpointed group keeps from its forward for the backward.
+
+def nothing_saveable():
+    """Remat ``"full"`` (``jax.checkpoint_policies.nothing_saveable``): keep
+    only the group's inputs, recompute the rest in the backward."""
+    return contextlib.nullcontext(), contextlib.nullcontext()
+
+
+def dots_with_no_batch_dims_saveable():
+    """Remat ``"dots"`` (``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``): keep the outputs of unbatched matrix
+    products (``aten.mm``/``aten.addmm``: the projections and MLPs), recompute
+    everything else, batched products (attention scores, MoE experts)
+    included."""
+    return create_selective_checkpoint_contexts(
+        [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
 
 
 # --------------------------------------------------------------------- norms

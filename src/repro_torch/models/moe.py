@@ -99,22 +99,24 @@ def moe_layer(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, 
     cap = _capacity(cfg, t)
     routes, frac_dispatched = moe_route(cfg, probs)
 
-    buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=x.device)
-    for r in routes:
-        # A kept token's slot is unique across tokens and rounds (positions
-        # run on from each expert's fill); a dropped token adds a zero row at
-        # (0, clip(pos)).  So only zeros collide, and x + 0 == x exactly: the
-        # sum is the same in any order, atomic adds on the card included.
-        src = torch.where(r.keep[:, None], xt, torch.zeros_like(xt))
-        buf.index_put_((r.dest_e.long(), r.dest_c.long()), src, accumulate=True)
+    # Slots as rows of a flat (E * C, d) buffer.  A kept token's slot is
+    # unique across tokens and rounds (positions run on from each expert's
+    # fill); a dropped token adds a zero row at (0, clip(pos)).  So only zeros
+    # collide, and x + 0 == x: the atomic adds of index_add_ on the card (and
+    # of its backward, index_select's) give the same sums in any order.
+    slots = [r.dest_e.long() * cap + r.dest_c.long() for r in routes]
+    buf = torch.zeros((e * cap, d), dtype=xt.dtype, device=x.device)
+    for r, slot in zip(routes, slots):
+        buf.index_add_(0, slot, torch.where(r.keep[:, None], xt, torch.zeros_like(xt)))
+    buf = buf.view(e, cap, d)
 
     hidden = torch.bmm(buf, p.w_in)
     gated = F.silu(torch.bmm(buf, p.w_gate)) * hidden
-    expert_out = torch.bmm(gated, p.w_out)                          # (E, C, d)
+    expert_out = torch.bmm(gated, p.w_out).view(e * cap, d)         # (E*C, d)
 
     combined = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    for r in routes:
-        combined = combined + expert_out[r.dest_e.long(), r.dest_c.long()].float() * r.gate[:, None]
+    for r, slot in zip(routes, slots):
+        combined = combined + expert_out.index_select(0, slot).float() * r.gate[:, None]
 
     aux = torch.sum(frac_dispatched / moe.top_k * torch.mean(probs, dim=0)) * e
     out = combined.to(x.dtype).reshape(b, s, d)

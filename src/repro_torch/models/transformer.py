@@ -10,7 +10,8 @@ that order (``cfg.scan_layers`` has no effect).  Caches are a list with one
 entry per layer in the same order.
 
 Three execution modes share the block code:
-    train   — full sequence, no caches
+    train   — full sequence, no caches; each repeat of the pattern
+              optionally checkpointed (``remat_policy``)
     prefill — full sequence, returns caches (serve step 1)
     decode  — S=1 against caches (serve step N); attention caches are
               written in place
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -220,32 +222,64 @@ def _train_masks(cfg: ModelConfig, s: int, device) -> dict:
     }
 
 
-def _run_stacks(cfg, params: Transformer, x, *, angles, masks, caches, decode_pos, mode):
-    """Every layer in order.  Returns (x, new_caches, aux)."""
+def _run_stacks(cfg, params: Transformer, x, *, angles, masks, caches, decode_pos, mode,
+                remat_policy=None):
+    """Every layer in order, one repeat of the block pattern at a time, then
+    the tail.  Returns (x, new_caches, aux).
+
+    With ``remat_policy`` (train only) each repeat runs under
+    ``torch.utils.checkpoint`` with that policy as its ``context_fn``, as the
+    reference checkpoints its scan body: the tail never is."""
+    reps, _ = stack_geometry(cfg)
+    k = len(cfg.block_pattern)
+
+    def run(x, first: int, n: int):
+        """Layers ``first .. first + n - 1`` -> (x, their aux sum, caches)."""
+        aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
+        cs = []
+        for i in range(first, first + n):
+            p = params.layers[i]
+            x, new_c, aux = _block(
+                cfg, p, x,
+                angles=angles, mask=masks.get(p.kind) if masks else None,
+                cache=caches[i] if caches is not None else None, decode_pos=decode_pos,
+                mode=mode,
+            )
+            cs.append(new_c)
+            if aux is not None:
+                aux_acc = aux_acc + aux
+        return x, aux_acc, cs
+
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
-    for i, p in enumerate(params.layers):
-        x, new_c, aux = _block(
-            cfg, p, x,
-            angles=angles, mask=masks.get(p.kind) if masks else None,
-            cache=caches[i] if caches is not None else None, decode_pos=decode_pos, mode=mode,
-        )
-        new_caches.append(new_c)
-        if aux is not None:
-            aux_total = aux_total + aux
+    for r in range(reps):
+        if remat_policy is None:
+            x, aux, cs = run(x, r * k, k)
+        else:
+            x, aux = checkpoint(lambda x_, first=r * k: run(x_, first, k)[:2], x,
+                                use_reentrant=False, context_fn=remat_policy,
+                                preserve_rng_state=False)
+            cs = [None] * k
+        new_caches.extend(cs)
+        aux_total = aux_total + aux
+    for i in range(reps * k, len(params.layers)):
+        x, aux, cs = run(x, i, 1)
+        new_caches.extend(cs)
+        aux_total = aux_total + aux
     return x, new_caches, aux_total
 
 
 def forward_train(cfg: ModelConfig, params: Transformer, tokens, positions, *,
-                  extra_embeds=None, return_hidden: bool = False):
+                  extra_embeds=None, remat_policy=None, return_hidden: bool = False):
     """Full-sequence forward -> (logits (B,S,V), moe_aux); with
     ``return_hidden`` the final-normed hidden states come back instead of
-    logits."""
+    logits.  ``remat_policy``: a policy of ``layers`` (``nothing_saveable``,
+    ``dots_with_no_batch_dims_saveable``) or None."""
     x = _embed_inputs(cfg, params, tokens, extra_embeds)
     angles = L.rope_angles(cfg, positions) if cfg.rope_theta else None
     masks = _train_masks(cfg, x.shape[1], x.device)
     x, _, aux = _run_stacks(cfg, params, x, angles=angles, masks=masks, caches=None,
-                            decode_pos=None, mode="train")
+                            decode_pos=None, mode="train", remat_policy=remat_policy)
     if return_hidden:
         return L.rms_norm(x, params.final_norm, cfg), aux
     return _logits(cfg, params, x), aux

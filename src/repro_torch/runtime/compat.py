@@ -37,10 +37,13 @@ def shard_map(f: Callable[..., Any], *, mesh, in_specs, out_specs) -> Callable[.
 
 
 def token_prefix_sum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """Inclusive prefix sum along ``axis``: ``torch.cumsum``.
+    """Inclusive prefix sum along ``axis``: ``torch.cumsum``, run along the
+    innermost axis of a transposed copy (the card's scan along an outer axis
+    of a (tokens, experts) one-hot took 2.9 ms at 16,384 x 32; the inner
+    one is one pass).
 
     The reference routes this through ``jnp.cumsum`` on old jax because its
     SPMD partitioner miscompiled ``lax.associative_scan`` over a sharded
     axis; that fault is jax's own.  Here the tensor is a rank's local one and
     ``torch.cumsum`` is the plain scan."""
-    return torch.cumsum(x, dim=axis)
+    return torch.cumsum(x.movedim(axis, -1), dim=-1).movedim(-1, axis)

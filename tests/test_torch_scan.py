@@ -325,7 +325,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import sys, repro_torch.api, repro_torch.launch.gwas, repro_torch.kernels.build,"
         " repro_torch.serve, repro_torch.runtime.sharding, repro_torch.runtime.compat,"
         " repro_torch.runtime.compression, repro_torch.configs, repro_torch.models.api,"
-        " repro_torch.models.convert, repro_torch.train.serve_step, repro_torch.train.data;"
+        " repro_torch.models.convert, repro_torch.train.serve_step, repro_torch.train.data,"
+        " repro_torch.train, repro_torch.launch.train, repro_torch.launch.roofline;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
         "assert not bad, bad"
     )
