@@ -161,6 +161,15 @@ Phases, each printing one JSON line:
                   m/v (its peak); the checkpoint restored into a fresh model
                   and steps 5-7 rerun, equal to the uninterrupted run (bitwise
                   when the two passes were)
+  lm_mesh_one     LM training on a mesh: a world of one process spawned over
+                  NCCL with a (1, 1) ("data", "model") mesh; gemma2-9b at full
+                  width, depth cut to one repeat of its pattern (2 layers),
+                  B=2, S=256: one train step with ``mesh=`` (remat "full",
+                  loss_chunk 128) bitwise equal to the ``mesh=None`` step from
+                  the same weights (metrics, parameters, m and v: on one rank
+                  the gather and the gradient reduce are identities), then
+                  one step of ``launch/train.py --reduced --mesh pod`` on that
+                  world
 
 The LM phases launch none of the repo's kernels: each reads the counts and
 fails unless all are 0.  Each path's launch counts are set to 0 just before it runs and read just
@@ -174,7 +183,7 @@ runs the device phase and the named phases among ``build``, ``kernel`` and
 ``kernel_tstat`` only (a quick check of the kernels); it prints neither the
 ``kernels`` line nor the ``ok`` line.  ``--only lm_serve`` (and
 ``lm_parity``, ``lm_families``, ``lm_train_parity``, ``lm_train_families``,
-``lm_train``) runs one LM phase alone the same way.  On a machine with two or more cards,
+``lm_train``, ``lm_mesh_one``) runs one LM phase alone the same way.  On a machine with two or more cards,
 
     python3 chip_smoke.py --only build,devices
 
@@ -192,7 +201,33 @@ width, the lmm fused epilogue ``mp`` on lmm_identities' cohort, the dense
 multivariate screen ``mp``; fused tables byte-equal, the rest at the oracle
 tolerances; every rank's gathered tiles bitwise equal (a digest of every
 cell), a repeated ``sample`` run bitwise equal, and a checkpoint cut under
-the mesh resumed with no mesh byte-equal to the serial tables.
+the mesh resumed with no mesh byte-equal to the serial tables.  On 4 cards,
+
+    python3 chip_smoke.py --only build,lm_mesh
+
+runs LM training on a mesh, one process per card over NCCL (fewer cards:
+an error).  (a) Parity: gemma2-9b at full width, one repeat, float32, B=8,
+S=512, on (2, 2) and (4, 1) against the ``mesh=None`` step on ``cuda:0``
+from the same weights and batch (loss and grad_norm within 1e-5, each
+gradient within 1e-4 * max |g|, every rank's metrics the same bits);
+granite-moe-1b-a400m whole in float32 on (2, 2): the GSPMD MoE with the
+config's capacity against ``mesh=None`` at the same bounds (dropped slots
+counted), the manual MoE's logits against the GSPMD layer's within 1e-3 at
+capacity factor E, and a checkpoint cut at step 2 under the mesh, streamed
+to disk and read back one key at a time, resumed on one card with no mesh
+(steps 3-4 within 1e-5); and granite-moe-1b-a400m whole in bf16, B=4 x
+S=4,096, timed on (4, 1) with the GSPMD MoE (each rank runs the experts
+over the whole batch's (E, C) buffer) and the manual MoE (each rank's rows
+alone), and on one card with no mesh.  (b) gemma2-9b whole (42
+layers, bf16) with FSDP on (4, 1): 6 AdamW steps of B=16 x S=4,096 with 4
+microbatches, remat "full", loss_chunk 512 and float32 m/v; first, median
+and p95 step times, tokens/s, each rank's memory at rest and peak, the
+bytes each rank received through collectives a step, the FLOP bound
+(``launch.roofline.model_flops`` at 4 x 989 TFLOP/s) and the step's share
+of it, one more step under ``torch.profiler`` on every rank (busy share,
+top kernels), and two identical passes compared (the differing gradients
+named).
+(c) Every rank's launch counts of the repo's kernels read 0.
 """
 from __future__ import annotations
 
@@ -313,6 +348,22 @@ LM_TRAIN_FAMILIES = dict(batch=2, seq=64, seed=2026, rel_bound=1e-3,
 # from 256 to 4; a checkpoint after 5 steps, resumed for steps 5-7.
 LM_TRAIN = dict(arch="granite-moe-1b-a400m", batch=4, seq=4096, steps=8, resume_at=5,
                 remat="dots", loss_chunk=1024, seed=2026)
+# LM training on a mesh.  lm_mesh_one: gemma2-9b at full width, one repeat
+# of its pattern, on a world of one: the mesh step bitwise equal to
+# mesh=None.  lm_mesh (4 cards): (a) parity at reduced depth in float32 on
+# (2, 2) and (4, 1) against mesh=None on cuda:0, granite-moe-1b-a400m whole
+# on (2, 2) (GSPMD with the config's capacity, manual vs GSPMD at capacity
+# factor E, a checkpoint cut at step 2 resumed on one card; the MoE's cost
+# on (4, 1) in bf16, GSPMD vs manual vs one card); (b) gemma2-9b
+# whole with FSDP on (4, 1), the reference's TRAIN_OVERRIDES["gemma2-9b"]
+# (4 microbatches, remat full, loss_chunk 512, float32 m/v), B=16, S=4,096.
+LM_MESH_ONE = dict(arch="gemma2-9b", batch=2, seq=256, remat="full", loss_chunk=128, seed=2026)
+LM_MESH = dict(arch="gemma2-9b", batch=8, seq=512, seed=2026, loss_rel=1e-5, grad_rel=1e-4,
+               shapes=((2, 2), (4, 1)), moe_arch="granite-moe-1b-a400m", moe_batch=8,
+               moe_seq=512, manual_bound=1e-3, cut_at=2, resume_to=4,
+               moe_cost=dict(batch=4, seq=4096, steps=4, remat="dots", loss_chunk=1024),
+               whole=dict(batch=16, seq=4096, steps=6, n_microbatches=4, remat="full",
+                          loss_chunk=512))
 
 
 def emit(obj: dict) -> None:
@@ -2063,10 +2114,17 @@ def _mesh_job(mesh, rank: int, job: dict) -> dict:
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
-def _mesh_rank(rank: int, world: int, store: str, shape, jobs, tmp: str) -> None:
-    """One spawned rank of the mesh phase: its own card, NCCL (initialized
-    eagerly, so a failure surfaces here), the ("data", "model") mesh, each
-    job in turn.  Writes its results to ``tmp/mesh_rank<rank>.json``."""
+def _mesh_jobs(mesh, rank: int, jobs: list, tmp: str) -> dict:
+    """The mesh phase's body on one rank: each scan job in turn."""
+    return {job["name"]: _mesh_job(mesh, rank, job) for job in jobs}
+
+
+def _mesh_rank(rank: int, world: int, store: str, shape, jobs, tmp: str,
+               body: str = "_mesh_jobs") -> None:
+    """One spawned rank of a mesh phase: its own card, NCCL (initialized
+    eagerly, so a failure surfaces here), the ("data", "model") mesh, then
+    ``body(mesh, rank, jobs, tmp)`` (a function of this module, by name).
+    Writes its result to ``tmp/mesh_rank<rank>.json``."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2080,33 +2138,41 @@ def _mesh_rank(rank: int, world: int, store: str, shape, jobs, tmp: str) -> None
                             timeout=datetime.timedelta(seconds=300))
     try:
         mesh = init_device_mesh("cuda", tuple(shape), mesh_dim_names=("data", "model"))
-        out = {job["name"]: _mesh_job(mesh, rank, job) for job in jobs}
+        out = globals()[body](mesh, rank, jobs, tmp)
         with open(os.path.join(tmp, f"mesh_rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def _spawn_mesh(tmp: str, shape, jobs: list) -> list:
-    """Run ``jobs`` on a mesh of ``shape``, one spawned process per card;
-    returns each rank's results after checking that every rank's cells
-    carry the same bits."""
+def _spawn_world(tmp: str, shape, jobs, body: str = "_mesh_jobs") -> list:
+    """Run ``body`` on a mesh of ``shape``, one spawned process per card;
+    returns each rank's result (the first with the spawn's wall time)."""
     import torch.multiprocessing as mp
 
     world = math.prod(shape)
-    store = os.path.join(tmp, f"mesh_store_{'x'.join(map(str, shape))}")
+    store = os.path.join(tmp, f"mesh_store_{body}_{'x'.join(map(str, shape))}")
     for r in range(world):
         path = os.path.join(tmp, f"mesh_rank{r}.json")
         if os.path.exists(path):
             os.remove(path)
     t0 = time.perf_counter()
-    mp.spawn(_mesh_rank, args=(world, store, list(shape), jobs, tmp), nprocs=world, join=True)
+    mp.spawn(_mesh_rank, args=(world, store, list(shape), jobs, tmp, body), nprocs=world,
+             join=True)
     spawn_s = time.perf_counter() - t0
     ranks = [json.load(open(os.path.join(tmp, f"mesh_rank{r}.json"))) for r in range(world)]
-    for job in jobs:
-        digests = {ranks[r][job["name"]]["digest"] for r in range(world)}
-        check(len(digests) == 1, f"mesh {shape}/{job['name']}: the ranks' cells differ")
     ranks[0]["spawn_s"] = spawn_s
+    return ranks
+
+
+def _spawn_mesh(tmp: str, shape, jobs: list) -> list:
+    """Run ``jobs`` on a mesh of ``shape``, one spawned process per card;
+    returns each rank's results after checking that every rank's cells
+    carry the same bits."""
+    ranks = _spawn_world(tmp, shape, jobs)
+    for job in jobs:
+        digests = {ranks[r][job["name"]]["digest"] for r in range(len(ranks))}
+        check(len(digests) == 1, f"mesh {shape}/{job['name']}: the ranks' cells differ")
     return ranks
 
 
@@ -3033,6 +3099,391 @@ def phase_lm_train() -> dict:
     return row
 
 
+def _one_repeat(cfg):
+    """Full width, depth cut to one repeat of the block pattern."""
+    return dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))
+
+
+def _lm_mesh_one_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
+    """lm_mesh_one on its one rank: the same weights (each drawn from the
+    seeded generator on the card) through one train step with and without
+    the (1, 1) mesh, compared bit for bit (metrics, parameters, m and v);
+    then one step of ``launch/train.py --reduced --mesh pod``."""
+    import contextlib
+    import io
+
+    import torch
+
+    import repro_torch.launch.train as port_train
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.train import make_batch
+    from repro_torch.train.train_step import TrainStepConfig, build_train_step, init_train_state
+
+    dev = sh.local_device(mesh)
+    cfg = _one_repeat(_lm_config(p["arch"]))
+    tcfg = TrainStepConfig(remat=p["remat"], loss_chunk=p["loss_chunk"])
+    batch = make_batch(cfg, ShapeConfig("t", p["seq"], p["batch"], "train"), 0, seed=p["seed"])
+    reset_launches()
+    runs, out = {}, {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype}
+    for label, m in (("none", None), ("mesh", mesh)):
+        torch.cuda.reset_peak_memory_stats()
+        model, opt = init_train_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(p["seed"]),
+                                      device=dev, max_positions=p["seq"], mesh=m)
+        step = build_train_step(cfg, tcfg=tcfg, mesh=m)
+        (_, opt, metrics), dt = _timed(lambda: step(model, opt, batch))
+        runs[label] = (model, opt, metrics)
+        out[label] = {"step_s": dt, "peak_bytes": torch.cuda.max_memory_allocated(),
+                      **{k: float(v) for k, v in metrics.items()}}
+    (m0, o0, x0), (m1, o1, x1) = runs["none"], runs["mesh"]
+    p0, p1 = dict(m0.named_parameters()), dict(m1.named_parameters())
+    out["differing"] = sorted(
+        [f"metric {k}" for k in x0 if not torch.equal(x0[k], x1[k])]
+        + [f"{part} {k}" for part, a, b in (("param", p0, p1), ("m", o0.m, o1.m), ("v", o0.v, o1.v))
+           for k in a if not torch.equal(a[k], b[k])])
+    del runs, m0, m1, o0, o1, p0, p1
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        port_train.main(["--arch", p["arch"], "--reduced", "--steps", "1", "--log-every", "1",
+                         "--mesh", "pod", "--device", dev.type])
+    out["train_cli"] = buf.getvalue().splitlines()
+    out["launches"] = read_launches()
+    return out
+
+
+def phase_lm_mesh_one() -> dict:
+    """The default run's LM mesh phase: a world of one over NCCL, mesh
+    (1, 1).  gemma2-9b at full width, one repeat of its pattern, B=2,
+    S=256: the mesh train step bitwise equal to the mesh=None one (the
+    gather and the gradient reduce are identities), and one step of
+    ``launch/train.py --mesh pod``; no kernel of the repo launched."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
+    try:
+        res = _spawn_world(tmp, (1, 1), LM_MESH_ONE, body="_lm_mesh_one_rank")[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not res["differing"], f"lm_mesh_one: mesh (1, 1) differs from mesh=None: "
+          f"{res['differing'][:8]}")
+    cli = res["train_cli"]
+    check(cli[0] == "mesh data=1xmodel=1" and cli[-1] == "done." and len(cli) == 3,
+          f"lm_mesh_one: launch/train.py --mesh pod printed {cli}")
+    check(not any(res["launches"].values()), f"lm_mesh_one: kernels launched: {res['launches']}")
+    emit({"phase": "lm_mesh_one", "world": 1, "shape": [1, 1], "backend": "nccl",
+          "arch": LM_MESH_ONE["arch"], "batch": LM_MESH_ONE["batch"], "seq": LM_MESH_ONE["seq"],
+          "bitwise_equal_mesh_none": True, **res})
+    return res
+
+
+def _counting_drops():
+    """Wraps the MoE router so each call's dropped slots are counted;
+    returns the running list of counts."""
+    import repro_torch.models.moe as moe_mod
+
+    counts: list = []
+    route = moe_mod.moe_route
+
+    def counted(*args, **kwargs):
+        routes, frac = route(*args, **kwargs)
+        counts.append(sum(int((~r.keep).sum()) for r in routes))
+        return routes, frac
+
+    moe_mod.moe_route = counted
+    return counts
+
+
+def _held_grads(cfg, tcfg, model, batch, mesh, want: dict | None) -> dict:
+    """The mesh step's loss and gradients on this rank's blocks; each
+    gradient gathered (one leaf at a time) and held on rank 0 against
+    ``want`` = (loss, grad_norm, gradients) of the mesh=None step."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.train.optimizer import global_norm_on_mesh
+    from repro_torch.train.train_step import loss_and_grads, param_specs
+
+    specs = param_specs(cfg, mesh)
+    (loss, metrics, grads), dt = _timed(lambda: loss_and_grads(cfg, tcfg, model, batch, mesh=mesh))
+    gnorm = global_norm_on_mesh(grads, mesh, specs)
+    errs = {}
+    for name, g in grads.items():
+        full = sh.gather_full(g, mesh, specs[name])
+        if want is not None:
+            ref = want[2][name]
+            errs[name] = (float((full.float() - ref.float()).abs().max())
+                          / max(float(ref.float().abs().max()), 1e-30))
+        del full
+    out = {"step_s": dt, "loss": float(loss), "grad_norm": float(gnorm),
+           "moe_aux": float(metrics["moe_aux"])}
+    if want is not None:
+        worst = max(errs, key=errs.get)
+        out.update(loss_rel_err=_rel(loss, want[0]), grad_norm_rel_err=_rel(gnorm, want[1]),
+                   grad_max_rel_err=errs[worst], grad_worst_leaf=worst)
+    dist.barrier()
+    return out
+
+
+def _lm_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
+    """lm_mesh on one of 4 ranks (module docstring: parts (a) and (b)).
+    (b)'s ``rest_bytes`` is the training state alone (allocated after its
+    init less before it); ``peak_bytes`` is the card's peak over (b)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.launch.roofline import HW, model_flops
+    from repro_torch.launch.train import restore_state, state_items
+    from repro_torch.models import api as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.checkpoint import TrainCheckpoint
+    from repro_torch.train import make_batch
+    from repro_torch.train.optimizer import adamw_init, global_norm
+    from repro_torch.train.train_step import (TrainStepConfig, build_train_step, init_train_state,
+                                              loss_and_grads, mesh_scope)
+
+    dev = sh.local_device(mesh)
+    meshes = {"x".join(map(str, s)): make_mesh(s, ("data", "model")) for s in p["shapes"]}
+    gen = lambda: torch.Generator(device=dev).manual_seed(p["seed"])  # noqa: E731
+    reset_launches()
+    out = {"rank": rank, "meshes": {k: describe(m) for k, m in meshes.items()}}
+
+    def unsharded(cfg, tcfg, batch):
+        """Rank 0: the mesh=None step on cuda:0 from the same weights."""
+        if rank != 0:
+            return None
+        model = M.init_model(cfg, generator=gen(), device=dev)
+        loss, _, grads = loss_and_grads(cfg, tcfg, model, _on(batch, dev))
+        want = (loss, global_norm(grads.values()), grads)
+        del model
+        return want
+
+    # (a) gemma2-9b, one repeat, float32, on (2, 2) and (4, 1)
+    cfg = dataclasses.replace(_one_repeat(_lm_config(p["arch"])), dtype="float32")
+    tcfg = TrainStepConfig()
+    batch = make_batch(cfg, ShapeConfig("t", p["seq"], p["batch"], "train"), 0, seed=p["seed"])
+    want = unsharded(cfg, tcfg, batch)
+    out["gemma2"] = {}
+    for label, m in meshes.items():
+        model = init_train_state(cfg, tcfg, gen(), device=dev, mesh=m)[0]
+        out["gemma2"][label] = _held_grads(cfg, tcfg, model, batch, m, want)
+        del model
+    del want
+    torch.cuda.empty_cache()
+
+    # (a) granite-moe-1b-a400m whole, float32, on (2, 2)
+    m22 = meshes["2x2"]
+    cfg = dataclasses.replace(_lm_config(p["moe_arch"]), dtype="float32")
+    shape = ShapeConfig("t", p["moe_seq"], p["moe_batch"], "train")
+    batches = [make_batch(cfg, shape, i, seed=p["seed"]) for i in range(p["resume_to"])]
+    drops = _counting_drops()
+    want = unsharded(cfg, tcfg, batches[0])
+    out["moe_dropped_unsharded"] = sum(drops)
+    drops.clear()
+    model, opt = init_train_state(cfg, tcfg, gen(), device=dev, mesh=m22)
+    out["granite"] = _held_grads(cfg, tcfg, model, batches[0], m22, want)
+    out["moe_dropped_mesh_rank"] = sum(drops)
+    del want
+    cfg_e = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    logits = {}
+    for impl in ("manual", "gspmd"):
+        c = dataclasses.replace(cfg_e, moe_impl=impl)
+        with torch.no_grad(), mesh_scope(c, model, batches[0], m22) as rows:
+            logits[impl] = M.train_logits(c, model, rows)[0]
+    out["manual_vs_gspmd_max_abs"] = float((logits["manual"] - logits["gspmd"]).abs().max())
+    del logits
+    # four AdamW steps on (2, 2), a checkpoint after step 2 (rank 0 writes it)
+    step = build_train_step(cfg, tcfg=tcfg, mesh=m22)
+    ck = TrainCheckpoint(os.path.join(tmp, "lm_mesh_ckpt"))
+    losses = []
+    for i in range(p["resume_to"]):
+        model, opt, metrics = step(model, opt, batches[i])
+        losses.append(float(metrics["loss"]))
+        if i + 1 == p["cut_at"]:   # streamed to disk one key at a time
+            items = state_items(cfg, model, opt, mesh=m22)
+            if rank == 0:
+                ck.save(i + 1, items)
+            else:
+                for _ in items:
+                    pass
+    out["mesh_losses"] = losses
+    del model, opt
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:   # resumed on one card, no mesh
+        fresh = M.init_model(cfg, generator=None, device=dev)
+        fresh_opt = adamw_init(tcfg.optimizer, fresh)
+        with ck.open() as (start, flat):   # read one key at a time
+            fresh_opt = restore_state(cfg, fresh, fresh_opt, flat)
+        one = build_train_step(cfg, tcfg=tcfg)
+        resumed = []
+        for i in range(start, p["resume_to"]):
+            fresh, fresh_opt, metrics = one(fresh, fresh_opt, batches[i])
+            resumed.append(float(metrics["loss"]))
+        out["resumed_from"], out["resumed_losses"] = start, resumed
+        del fresh, fresh_opt
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (a) the GSPMD MoE's cost on a data axis: granite-moe-1b-a400m whole,
+    # bfloat16, on (4, 1), where each rank runs the experts over the whole
+    # batch's (E, C) buffer; the manual MoE routes each rank's rows alone;
+    # "none" is the same global batch on rank 0's card with no mesh.
+    m41 = meshes["4x1"]
+    c = p["moe_cost"]
+    cfg = _lm_config(p["moe_arch"])
+    shape = ShapeConfig("t", c["seq"], c["batch"], "train")
+    tcfg = TrainStepConfig(remat=c["remat"], loss_chunk=c["loss_chunk"])
+    batches = [make_batch(cfg, shape, i, seed=p["seed"]) for i in range(c["steps"])]
+    tokens = c["batch"] * c["seq"]
+    rank_tokens = tokens // sh.axis_size(m41, "data")
+    moe = cfg.moe
+    rows = {"gspmd": moe.n_experts * moe_mod._capacity(cfg, tokens),   # the (E, C) buffer
+            "manual": moe.n_experts * max(4, int(moe.capacity_factor * rank_tokens * moe.top_k
+                                                 / moe.n_experts) + 4),
+            "none": moe.n_experts * moe_mod._capacity(cfg, tokens)}
+    out["moe_cost"] = {}
+    for impl in ("gspmd", "manual", "none"):
+        m = None if impl == "none" else m41
+        if m is None and rank != 0:
+            dist.barrier()
+            continue
+        ci = dataclasses.replace(cfg, moe_impl="gspmd" if m is None else impl)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, opt = init_train_state(ci, tcfg, gen(), device=dev, max_positions=c["seq"], mesh=m)
+        step = build_train_step(ci, tcfg=tcfg, mesh=m)
+        times, losses = [], []
+        for b in batches:
+            (model, opt, metrics), dt = _timed(lambda: step(model, opt, b))
+            times.append(1e3 * dt)
+            losses.append(float(metrics["loss"]))
+        out["moe_cost"][impl] = {"step_ms": times, "step_ms_median": statistics.median(times[1:]),
+                                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                                 "losses": losses, "expert_rows_per_rank": rows[impl]}
+        del model, opt, step
+        if m is None:
+            dist.barrier()
+    torch.cuda.empty_cache()
+
+    # (b) gemma2-9b whole, bfloat16, FSDP on (4, 1)
+    w = p["whole"]
+    cfg = _lm_config(p["arch"])
+    shape = ShapeConfig("train_4k", w["seq"], w["batch"], "train")
+    tcfg = TrainStepConfig(n_microbatches=w["n_microbatches"], remat=w["remat"],
+                           loss_chunk=w["loss_chunk"])
+    batches = [make_batch(cfg, shape, i) for i in range(w["steps"] + 1)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (model, opt), init_s = _timed(lambda: init_train_state(cfg, tcfg, gen(), device=dev,
+                                                          max_positions=w["seq"], mesh=m41))
+    rest = torch.cuda.memory_allocated() - base
+    step = build_train_step(cfg, tcfg=tcfg, mesh=m41)
+    losses, step_s, received = [], [], []
+    for i in range(w["steps"]):
+        sh.collective_bytes = 0
+        (model, opt, metrics), dt = _timed(lambda: step(model, opt, batches[i]))
+        losses.append(float(metrics["loss"]))
+        step_s.append(dt)
+        received.append(sh.collective_bytes)
+    peak = torch.cuda.max_memory_allocated()
+    profile = _device_profile(lambda: step(model, opt, batches[-1]), 1, top=10)
+    l1, _, g1 = loss_and_grads(cfg, tcfg, model, batches[-1], mesh=m41)
+    l2, _, g2 = loss_and_grads(cfg, tcfg, model, batches[-1], mesh=m41)
+    differ = _grads_differ(g1, g2) + ([] if torch.equal(l1, l2) else ["loss"])
+    del g1, g2, model, opt
+    torch.cuda.empty_cache()
+    warm = sorted(1e3 * t for t in step_s[1:])
+    flops = model_flops(cfg, shape)
+    out["whole"] = {
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model, "mesh": describe(m41),
+        "batch": w["batch"], "seq": w["seq"], "n_microbatches": w["n_microbatches"],
+        "remat": w["remat"], "loss_chunk": w["loss_chunk"], "init_s": init_s, "losses": losses,
+        "step_s": step_s, "base_bytes": base, "rest_bytes": rest, "peak_bytes": peak,
+        "received_bytes_per_step": received, "model_flops": flops,
+        "bound_ms": 1e3 * flops / (sh.axis_size(m41, ("data", "model")) * HW().peak_flops),
+        "repeat_differing": differ, "profile": profile,
+    }
+    if warm:
+        out["whole"]["step_ms_median"] = statistics.median(warm)
+        out["whole"]["step_ms_p95"] = warm[min(len(warm) - 1, math.ceil(0.95 * len(warm)) - 1)]
+    out["launches"] = read_launches()
+    return out
+
+
+def phase_lm_mesh() -> dict:
+    """``--only build,lm_mesh`` on 4 cards: LM training on a mesh, one
+    process per card over NCCL (module docstring).  Fewer cards: an error."""
+    import torch
+
+    n = torch.cuda.device_count()
+    check(n >= 4, f"lm_mesh needs 4 cards, found {n}")
+    p = LM_MESH
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
+    try:
+        ranks = _spawn_world(tmp, (2, 2), p, body="_lm_mesh_rank")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    parity = lambda r: {**{f"gemma2 {k}": v for k, v in r["gemma2"].items()},  # noqa: E731
+                        "granite 2x2": r["granite"]}
+    for label, row in parity(r0).items():
+        check(row["loss_rel_err"] <= p["loss_rel"] and row["grad_norm_rel_err"] <= p["loss_rel"]
+              and row["grad_max_rel_err"] <= p["grad_rel"], f"lm_mesh parity {label}: {row}")
+        for r in ranks[1:]:
+            other = parity(r)[label]
+            check(other["loss"] == row["loss"] and other["grad_norm"] == row["grad_norm"],
+                  f"lm_mesh parity {label}: rank {r['rank']}'s metrics differ")
+    check(r0["manual_vs_gspmd_max_abs"] < p["manual_bound"],
+          f"lm_mesh: manual vs GSPMD logits {r0['manual_vs_gspmd_max_abs']}")
+    resumed_err = max(_rel(a, b) for a, b in
+                      zip(r0["resumed_losses"], r0["mesh_losses"][r0["resumed_from"]:]))
+    check(r0["resumed_from"] == p["cut_at"] and resumed_err <= p["loss_rel"],
+          f"lm_mesh: the resumed run's losses {r0['resumed_losses']} vs {r0['mesh_losses']}")
+    whole = r0["whole"]
+    peaks = [r["whole"]["peak_bytes"] for r in ranks]
+    check(all(math.isfinite(x) for x in whole["losses"]), f"lm_mesh: losses {whole['losses']}")
+    check(max(peaks) < 80e9, f"lm_mesh: per-rank peaks {peaks}")
+    cost = r0["moe_cost"]
+    check(all(math.isfinite(x) for run in cost.values() for x in run["losses"]),
+          f"lm_mesh: granite losses {cost}")
+    for r in ranks:
+        check(not any(r["launches"].values()), f"lm_mesh: kernels launched {r['launches']}")
+    tokens = whole["batch"] * whole["seq"]
+    row = {"phase": "lm_mesh", "cards": n, "backend": "nccl", "meshes": r0["meshes"],
+           "gemma2_parity": r0["gemma2"], "granite_parity": r0["granite"],
+           "moe_dropped": {"unsharded": r0["moe_dropped_unsharded"],
+                           "mesh_per_rank": [r["moe_dropped_mesh_rank"] for r in ranks]},
+           "manual_vs_gspmd_max_abs": r0["manual_vs_gspmd_max_abs"],
+           "checkpoint": {"cut_at": p["cut_at"], "mesh_losses": r0["mesh_losses"],
+                          "resumed_losses": r0["resumed_losses"], "max_rel_err": resumed_err},
+           "moe_cost": {**cost, **{f"{impl}_peak_bytes_per_rank":
+                                   [r["moe_cost"][impl]["peak_bytes"] for r in ranks]
+                                   for impl in ("gspmd", "manual")},
+                        "batch": p["moe_cost"]["batch"], "seq": p["moe_cost"]["seq"],
+                        "gspmd_loss_rel_err_vs_none": max(
+                            _rel(a, b) for a, b in zip(cost["gspmd"]["losses"],
+                                                       cost["none"]["losses"]))},
+           "whole": {**whole, "peak_bytes_per_rank": peaks,
+                     "rest_bytes_per_rank": [r["whole"]["rest_bytes"] for r in ranks],
+                     "received_bytes_per_step_per_rank": [r["whole"]["received_bytes_per_step"]
+                                                          for r in ranks],
+                     "tokens_per_step": tokens},
+           "launches": [r["launches"] for r in ranks], "spawn_s": r0["spawn_s"]}
+    if "step_ms_median" in whole:
+        row["whole"]["tokens_per_s"] = tokens / (whole["step_ms_median"] / 1e3)
+        row["whole"]["share_of_bound"] = whole["bound_ms"] / whole["step_ms_median"]
+    emit(row)
+    return row
+
+
 def _scan_study(files: dict):
     import numpy as np
 
@@ -3057,7 +3508,8 @@ QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": ph
                 "devices": _in_tmp(phase_devices), "mesh": _in_tmp(phase_mesh),
                 "lm_parity": phase_lm_parity, "lm_serve": phase_lm_serve,
                 "lm_families": phase_lm_families, "lm_train_parity": phase_lm_train_parity,
-                "lm_train_families": phase_lm_train_families, "lm_train": phase_lm_train}
+                "lm_train_families": phase_lm_train_families, "lm_train": phase_lm_train,
+                "lm_mesh_one": phase_lm_mesh_one, "lm_mesh": phase_lm_mesh}
 
 
 def main(argv: list[str]) -> int:
@@ -3112,6 +3564,7 @@ def main(argv: list[str]) -> int:
     phase_lm_train_parity()
     phase_lm_train_families()
     phase_lm_train()
+    phase_lm_mesh_one()
     kernels = [{
         "name": "gwas_dot",
         "route": "cuda",

@@ -27,7 +27,7 @@ from repro_torch.models.transformer import stack_geometry
 
 __all__ = ["params_from_jax", "params_to_numpy", "opt_state_to_numpy", "caches_from_jax",
            "caches_to_numpy", "load_params", "to_torch", "reference_keys", "reference_ndims",
-           "reference_flat", "load_reference_flat"]
+           "reference_items", "reference_flat", "load_reference_flat"]
 
 
 def to_torch(arr, device) -> torch.Tensor:
@@ -136,38 +136,64 @@ def reference_ndims(cfg: ModelConfig, model: nn.Module) -> dict[str, int]:
     return {name: p.dim() + (keys[name][1] is not None) for name, p in model.named_parameters()}
 
 
+def _key_groups(cfg: ModelConfig, model: nn.Module) -> dict[str, list]:
+    """Each reference key -> [(stacked index or None, port name)], the
+    stacked ones in index order."""
+    groups: dict[str, list] = {}
+    for name, (key, idx) in reference_keys(cfg, model).items():
+        groups.setdefault(key, []).append((idx, name))
+    for items in groups.values():
+        if items[0][0] is not None:
+            items.sort(key=lambda item: item[0])
+    return groups
+
+
+def reference_items(cfg: ModelConfig, model: nn.Module, leaf, *, bits: bool = False):
+    """Yields (reference key, numpy array) one key at a time, calling
+    ``leaf(name)`` for each port parameter name of a key just before its
+    array is built, so at most one key's tensors are held at a time.  A
+    ``leaf`` that returns None (a rank that only takes part in gathering)
+    yields None for the key.  ``bits`` as in ``reference_flat``."""
+    conv = _to_bits if bits else _to_numpy
+    for key, items in _key_groups(cfg, model).items():
+        arrays = [None if t is None else conv(t) for t in (leaf(name) for _, name in items)]
+        if arrays[0] is None:
+            yield key, None
+        else:
+            yield key, arrays[0] if items[0][0] is None else np.stack(arrays)
+
+
 def reference_flat(cfg: ModelConfig, model: nn.Module, tensors: dict, *,
                    bits: bool = False) -> dict[str, np.ndarray]:
     """Tensors keyed by the port's parameter names (the parameters, their
     gradients, AdamW's m or v) -> numpy arrays under the reference's flat
     keys, stacked where the reference stacks.  ``bits`` keeps bfloat16 as
     ``|V2`` words (checkpoints); else it widens to float32 (comparisons)."""
-    conv = _to_bits if bits else _to_numpy
-    groups: dict[str, list] = {}
-    for name, (key, idx) in reference_keys(cfg, model).items():
-        groups.setdefault(key, []).append((idx, tensors[name]))
-    out = {}
-    for key, items in groups.items():
-        if items[0][0] is None:
-            out[key] = conv(items[0][1])
-        else:
-            items.sort(key=lambda item: item[0])
-            out[key] = np.stack([conv(t) for _, t in items])
-    return out
+    return dict(reference_items(cfg, model, tensors.__getitem__, bits=bits))
 
 
-def load_reference_flat(cfg: ModelConfig, model: nn.Module, flat: dict, targets: dict) -> None:
-    """Copy the reference's flat arrays into ``targets`` (tensors keyed by
-    the port's parameter names), each cast to its target's dtype, as the
-    reference's ``unflatten_like`` casts to its leaves'."""
+def load_reference_flat(cfg: ModelConfig, model: nn.Module, flat, targets: dict, *,
+                        cut=None, prefix: str = "") -> None:
+    """Copy the reference's flat arrays (``flat[prefix + key]``; a dict or
+    an open ``np.load`` file, read one key at a time, each once) into
+    ``targets`` (tensors keyed by the port's parameter names), each cast to
+    its target's dtype, as the reference's ``unflatten_like`` casts to its
+    leaves'.  ``cut(name, tensor)``, when given, takes each whole tensor (on
+    the CPU) to the part its target holds (a rank's block on a mesh)."""
     with torch.no_grad():
-        for name, (key, idx) in reference_keys(cfg, model).items():
-            src = np.asarray(flat[key])
-            dst = targets[name]
-            src = src[idx] if idx is not None else src
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"{key}: shape {src.shape} != the port's {tuple(dst.shape)}")
-            dst.copy_(to_torch(src, dst.device))
+        for key, items in _key_groups(cfg, model).items():
+            whole = np.asarray(flat[prefix + key])
+            for idx, name in items:
+                dst = targets[name]
+                src = whole[idx] if idx is not None else whole
+                t = to_torch(src, "cpu" if cut is not None else dst.device)
+                if cut is not None:
+                    t = cut(name, t)
+                if tuple(t.shape) != tuple(dst.shape):
+                    raise ValueError(f"{key}: shape {tuple(t.shape)} != the port's "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(t.to(dst.device))
+            del whole
 
 
 def _nest(flat: dict) -> dict:

@@ -7,7 +7,8 @@ bidirectional (no mask, no rope, learned positions); the decoder is causal
 self-attention + cross-attention over the encoded memory, with the
 standard serve split: cross K/V are computed once at prefill and reused
 every decode step.  Layers run in order (``cfg.scan_layers`` has no
-effect); caches are one dict per decoder layer.
+effect); caches are one dict per decoder layer.  Under a training mesh each
+block gathers its weights where it runs (``sharding_ctx.gathered``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import sharding_ctx as S
 
 __all__ = ["EncDec", "init_encdec_params", "init_cache", "encode", "forward_train",
            "prefill", "decode", "apply_head"]
@@ -85,10 +87,11 @@ def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor) -> torch.Tens
     """frames (B, enc_len, d) from the frontend stub -> memory (B, enc_len, d)."""
     x = frames.to(params.embed.dtype) + params.enc_pos[None, : frames.shape[1]]
     for p in params.encoder:
-        h, _ = L.attention(cfg, p.attn, L.rms_norm(x, p.ln1, cfg), angles=None, mask=None,
-                           causal=False)
-        x = x + h
-        x = x + L.mlp(cfg, p.mlp, L.rms_norm(x, p.ln2, cfg))
+        with S.gathered(p):
+            h, _ = L.attention(cfg, p.attn, L.rms_norm(x, p.ln1, cfg), angles=None, mask=None,
+                               causal=False)
+            x = x + h
+            x = x + L.mlp(cfg, p.mlp, L.rms_norm(x, p.ln2, cfg))
     return L.rms_norm(x, params.enc_final_norm, cfg)
 
 
@@ -125,16 +128,18 @@ def apply_head(cfg: ModelConfig, params: EncDec, hidden: torch.Tensor) -> torch.
 
 def forward_train(cfg: ModelConfig, params: EncDec, frames, tokens, *, return_hidden: bool = False):
     """Teacher-forced decoder logits (B, S, V) (or final hidden states)."""
-    memory = encode(cfg, params, frames)
-    s = tokens.shape[1]
-    x = params.embed[tokens] + params.dec_pos[None, :s]
-    mask = L.causal_mask(s, device=x.device)
-    for p in params.decoder:
-        x, _, _ = _dec_block(cfg, p, x, self_mask=mask, memory=memory)
-    x = L.rms_norm(x, params.final_norm, cfg)
-    if return_hidden:
-        return x
-    return _head_logits(cfg, params, x)
+    with S.gathered(params, recurse=False):
+        memory = encode(cfg, params, frames)
+        s = tokens.shape[1]
+        x = params.embed[tokens] + params.dec_pos[None, :s]
+        mask = L.causal_mask(s, device=x.device)
+        for p in params.decoder:
+            with S.gathered(p):
+                x, _, _ = _dec_block(cfg, p, x, self_mask=mask, memory=memory)
+        x = L.rms_norm(x, params.final_norm, cfg)
+        if return_hidden:
+            return x
+        return _head_logits(cfg, params, x)
 
 
 def prefill(cfg: ModelConfig, params: EncDec, frames, tokens, *, cache_capacity: int | None = None):

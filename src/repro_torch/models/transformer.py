@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import sharding_ctx as S
 
 __all__ = ["Block", "Transformer", "init_params", "init_cache", "forward_train",
            "prefill", "decode", "stack_geometry", "apply_head"]
@@ -144,9 +145,13 @@ def _block(cfg: ModelConfig, p: Block, x: torch.Tensor, *, angles, mask, cache, 
         h2 = L.rms_norm(x, p.ln2, cfg)
         aux = None
         if p.moe is not None:
-            from repro_torch.models.moe import moe_layer
+            from repro_torch.models.moe import moe_layer, moe_layer_manual
 
-            ff, aux = moe_layer(cfg, p.moe, h2)
+            mesh = S.current_mesh()
+            if cfg.moe_impl == "manual" and mesh is not None:
+                ff, aux = moe_layer_manual(cfg, p.moe, h2, mesh)
+            else:
+                ff, aux = moe_layer(cfg, p.moe, h2)
         else:
             ff = L.mlp(cfg, p.mlp, h2)
         if cfg.post_norms:
@@ -229,7 +234,9 @@ def _run_stacks(cfg, params: Transformer, x, *, angles, masks, caches, decode_po
 
     With ``remat_policy`` (train only) each repeat runs under
     ``torch.utils.checkpoint`` with that policy as its ``context_fn``, as the
-    reference checkpoints its scan body: the tail never is."""
+    reference checkpoints its scan body: the tail never is.  Under a mesh
+    each group gathers its layers' weights inside the checkpointed function
+    (``sharding_ctx.gathered``), so a recompute gathers them again."""
     reps, _ = stack_geometry(cfg)
     k = len(cfg.block_pattern)
 
@@ -237,17 +244,18 @@ def _run_stacks(cfg, params: Transformer, x, *, angles, masks, caches, decode_po
         """Layers ``first .. first + n - 1`` -> (x, their aux sum, caches)."""
         aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
         cs = []
-        for i in range(first, first + n):
-            p = params.layers[i]
-            x, new_c, aux = _block(
-                cfg, p, x,
-                angles=angles, mask=masks.get(p.kind) if masks else None,
-                cache=caches[i] if caches is not None else None, decode_pos=decode_pos,
-                mode=mode,
-            )
-            cs.append(new_c)
-            if aux is not None:
-                aux_acc = aux_acc + aux
+        with S.gathered(*params.layers[first:first + n]):
+            for i in range(first, first + n):
+                p = params.layers[i]
+                x, new_c, aux = _block(
+                    cfg, p, x,
+                    angles=angles, mask=masks.get(p.kind) if masks else None,
+                    cache=caches[i] if caches is not None else None, decode_pos=decode_pos,
+                    mode=mode,
+                )
+                cs.append(new_c)
+                if aux is not None:
+                    aux_acc = aux_acc + aux
         return x, aux_acc, cs
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -274,15 +282,17 @@ def forward_train(cfg: ModelConfig, params: Transformer, tokens, positions, *,
     """Full-sequence forward -> (logits (B,S,V), moe_aux); with
     ``return_hidden`` the final-normed hidden states come back instead of
     logits.  ``remat_policy``: a policy of ``layers`` (``nothing_saveable``,
-    ``dots_with_no_batch_dims_saveable``) or None."""
-    x = _embed_inputs(cfg, params, tokens, extra_embeds)
-    angles = L.rope_angles(cfg, positions) if cfg.rope_theta else None
-    masks = _train_masks(cfg, x.shape[1], x.device)
-    x, _, aux = _run_stacks(cfg, params, x, angles=angles, masks=masks, caches=None,
-                            decode_pos=None, mode="train", remat_policy=remat_policy)
-    if return_hidden:
-        return L.rms_norm(x, params.final_norm, cfg), aux
-    return _logits(cfg, params, x), aux
+    ``dots_with_no_batch_dims_saveable``) or None.  Under a mesh the
+    embedding, final norm and head are gathered for the whole call."""
+    with S.gathered(params, recurse=False):
+        x = _embed_inputs(cfg, params, tokens, extra_embeds)
+        angles = L.rope_angles(cfg, positions) if cfg.rope_theta else None
+        masks = _train_masks(cfg, x.shape[1], x.device)
+        x, _, aux = _run_stacks(cfg, params, x, angles=angles, masks=masks, caches=None,
+                                decode_pos=None, mode="train", remat_policy=remat_policy)
+        if return_hidden:
+            return L.rms_norm(x, params.final_norm, cfg), aux
+        return _logits(cfg, params, x), aux
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens, positions, *,

@@ -22,6 +22,7 @@ import os
 import tempfile
 import threading
 import time
+import zipfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -334,11 +335,18 @@ class TrainCheckpoint:
             steps = json.load(f).get("steps", [])
         return max(steps) if steps else None
 
-    def save(self, step: int, flat_state: dict[str, np.ndarray], extra: dict | None = None) -> None:
+    def save(self, step: int, flat_state, extra: dict | None = None) -> None:
+        """``flat_state`` maps keys to arrays, or yields (key, array) pairs:
+        each array is written as it comes (the ``np.savez`` format), so a
+        state larger than host memory can be streamed."""
         d = os.path.join(self.root, f"step_{step:08d}")
         os.makedirs(d, exist_ok=True)
         tmp = os.path.join(d, "arrays.tmp.npz")
-        np.savez(tmp, **flat_state)
+        items = flat_state.items() if isinstance(flat_state, dict) else flat_state
+        with zipfile.ZipFile(tmp, "w", compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+            for key, value in items:
+                with zf.open(f"{key}.npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, np.asanyarray(value), allow_pickle=False)
         os.replace(tmp, os.path.join(d, "arrays.npz"))
         if extra:
             _atomic_write_json(os.path.join(d, "extra.json"), extra)
@@ -357,9 +365,17 @@ class TrainCheckpoint:
                 os.rmdir(od)
         _atomic_write_json(self._manifest_path, {"steps": steps[-self.keep_last :]})
 
-    def restore(self, step: int | None = None) -> tuple[int, dict[str, np.ndarray]]:
+    @contextlib.contextmanager
+    def open(self, step: int | None = None):
+        """Yields (step, the open ``np.load`` file): each key is read from
+        disk when it is indexed, so a caller can restore one array at a
+        time."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         with np.load(os.path.join(self.root, f"step_{step:08d}", "arrays.npz")) as z:
+            yield step, z
+
+    def restore(self, step: int | None = None) -> tuple[int, dict[str, np.ndarray]]:
+        with self.open(step) as (step, z):
             return step, {k: z[k] for k in z.files}

@@ -17,6 +17,13 @@ together on every rank; they play the part of ``jit``'s in- and
 out-shardings.  ``sum_over`` adds a partial over mesh axes in rank order, so
 the sum does not depend on the collective library's reduction order.
 
+The LM wing trains through differentiable counterparts: ``gather_param``
+(a parameter's full value from the ranks' blocks; its backward is the
+gradient reduce of FSDP), ``psum`` (a sum over data axes whose backward is
+the same sum), and for work split over "model" inside one data row
+``sum_parts`` (forward sum, backward identity) and ``sum_grads`` (forward
+identity, backward sum).
+
 LM parameters use MaxText-style *logical* axes mapped to physical axes by
 ``LogicalAxisRules``.
 """
@@ -47,6 +54,12 @@ __all__ = [
     "shard_local",
     "gather_full",
     "sum_over",
+    "axis_rows",
+    "axis_index",
+    "gather_param",
+    "psum",
+    "sum_parts",
+    "sum_grads",
     "is_lead",
     "broadcast_object",
     "gather_objects",
@@ -54,8 +67,8 @@ __all__ = [
     "collective_bytes",
 ]
 
-# Bytes this rank received through the step's all-gathers so far (setup
-# broadcasts excluded); reset it by assignment.
+# Bytes this rank received through the step's all-gathers and
+# reduce-scatters so far (setup broadcasts excluded); reset it by assignment.
 collective_bytes = 0
 
 
@@ -249,7 +262,10 @@ def axis_size(mesh, names) -> int:
     return math.prod(int(mesh.shape[dims.index(n)]) for n in _names(names))
 
 
-def _axis_index(mesh, names: tuple[str, ...]) -> int:
+def axis_index(mesh, names) -> int:
+    """This rank's block index over one spec entry (its coordinates on the
+    entry's axes, the first major)."""
+    names = _names(names)
     dims = mesh_axes(mesh)
     coord = mesh.get_coordinate()
     idx = 0
@@ -284,7 +300,7 @@ def shard_local(x: torch.Tensor, mesh, spec) -> torch.Tensor:
                 f"dim {dim} of size {size} does not divide over {names} ({n} shards)"
             )
         step = size // n
-        out = out.narrow(dim, _axis_index(mesh, names) * step, step)
+        out = out.narrow(dim, axis_index(mesh, names) * step, step)
     return out.contiguous().to(local_device(mesh))
 
 
@@ -315,6 +331,15 @@ def gather_full(x_local: torch.Tensor, mesh, spec) -> torch.Tensor:
     return out
 
 
+def axis_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Every rank's ``x`` over the mesh ``axes``, stacked on a new first dim
+    in coordinate order (the first axis major)."""
+    stack = x.unsqueeze(0)
+    for name in reversed(_names(axes)):
+        stack = _gather_cat(stack, mesh, name, 0)
+    return stack
+
+
 def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Sum of every rank's partial ``x`` over the mesh ``axes``, identical
     on each rank: the partials are gathered and added in rank order (the
@@ -323,13 +348,128 @@ def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     names = _names(axes)
     if axis_size(mesh, names) == 1:
         return x
-    stack = x.unsqueeze(0)
-    for name in reversed(names):
-        stack = _gather_cat(stack, mesh, name, 0)
+    stack = axis_rows(x, mesh, names)
     acc = stack[0]
     for part in stack[1:]:
         acc = acc + part
     return acc
+
+
+# ------------------------------------------- differentiable collectives (LM)
+
+
+def _reduce_scatter(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
+    """Sum of every rank's ``x`` over one mesh axis, this rank's block of
+    it along ``dim`` (``reduce_scatter_tensor``; the order of the adds is
+    the library's)."""
+    global collective_bytes
+    n = axis_size(mesh, name)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype, device=src.device)
+    reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    reduce_scatter(out, src, group=mesh.get_group(name))
+    collective_bytes += (n - 1) * out.numel() * out.element_size()
+    return out.movedim(0, dim)
+
+
+def _all_reduce(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
+    global collective_bytes
+    n = axis_size(mesh, name)
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=mesh.get_group(name))
+    collective_bytes += 2 * (n - 1) * out.numel() * out.element_size() // n
+    return out
+
+
+class _GatherParam(torch.autograd.Function):
+    """Forward: the parameter's value over every axis of its spec but the
+    ``keep`` axes, from the ranks' blocks.  Backward: the rank's gradient of
+    that value -> the rank's block of the gradient of the mean of the data
+    rows' losses: cut to the rank's block on the axes its row computes
+    redundantly ("model"), then summed over the data axes and divided by
+    their size.  A data axis in the spec is reduced by ``reduce_scatter``
+    (the FSDP way: each rank receives its block only), one the leaf is
+    replicated over by ``all_reduce``."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, spec, keep):
+        ctx.mesh, ctx.spec, ctx.keep = mesh, spec, keep
+        out = block
+        for dim, entry in enumerate(spec):
+            for name in reversed(_names(entry)):
+                if name not in keep:
+                    out = _gather_cat(out, mesh, name, dim)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, spec, keep = ctx.mesh, ctx.spec, ctx.keep
+        data = batch_axes(mesh)
+        g = grad
+        for dim, entry in enumerate(spec):          # cut the model-axis blocks
+            names = tuple(n for n in _names(entry) if n not in data and n not in keep)
+            if names and axis_size(mesh, names) > 1:
+                if len(names) != len(_names(entry)):
+                    raise ValueError(f"spec entry {entry!r} mixes data and model axes")
+                step = g.shape[dim] // axis_size(mesh, names)
+                g = g.narrow(dim, axis_index(mesh, names) * step, step)
+        n_data = axis_size(mesh, data)
+        if n_data == 1:
+            return g.contiguous(), None, None, None
+        for name in data:                           # reduce over the data axes
+            if axis_size(mesh, name) == 1:
+                continue
+            dims = [d for d, e in enumerate(spec) if name in _names(e)]
+            g = _reduce_scatter(g, mesh, name, dims[0]) if dims else _all_reduce(g, mesh, name)
+        return g / n_data, None, None, None
+
+
+def gather_param(block: torch.Tensor, mesh, spec, keep: tuple[str, ...] = ()) -> torch.Tensor:
+    """A parameter's full value (but for its ``keep`` axes) from this rank's
+    ``block`` under ``spec``, differentiably (``_GatherParam``).  On a mesh
+    whose axes are all of size 1 it is ``block`` itself."""
+    if all(int(s) == 1 for s in mesh.shape):
+        return block
+    return _GatherParam.apply(block, mesh, PartitionSpec(*spec), tuple(keep))
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, fwd, bwd):
+        ctx.mesh, ctx.axes, ctx.bwd = mesh, axes, bwd
+        return sum_over(x, mesh, axes) if fwd else x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = sum_over(grad, ctx.mesh, ctx.axes) if ctx.bwd else grad
+        return g, None, None, None, None
+
+
+def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axes`` (rank order), whose
+    backward is the same sum of the cotangents: its transpose, for values
+    that differ between data rows."""
+    if axis_size(mesh, axes) == 1:
+        return x
+    return _Sum.apply(x, mesh, _names(axes), True, True)
+
+
+def sum_parts(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` is this rank's part of a value split over ``axes`` inside one
+    data row: forward the sum of the parts (rank order), backward the
+    row's cotangent to each part as it is."""
+    if axis_size(mesh, axes) == 1:
+        return x
+    return _Sum.apply(x, mesh, _names(axes), True, False)
+
+
+def sum_grads(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x``, replicated over ``axes`` inside one data row, feeding work
+    split over them: forward the identity, backward the sum of the ranks'
+    partial cotangents (rank order)."""
+    if axis_size(mesh, axes) == 1:
+        return x
+    return _Sum.apply(x, mesh, _names(axes), False, True)
 
 
 # ------------------------------------------------------ rank-0 decisions

@@ -30,7 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.convert import reference_ndims
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update", "global_norm",
-           "cosine_schedule", "decay_mask"]
+           "global_norm_on_mesh", "cosine_schedule", "decay_mask"]
 
 
 @dataclass(frozen=True)
@@ -94,6 +94,26 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(_sum_sq(t) for t in tensors))
 
 
+def global_norm_on_mesh(blocks: dict, mesh, specs: dict) -> torch.Tensor:
+    """``global_norm`` of the whole tensors whose blocks under ``specs`` the
+    ranks of ``mesh`` hold, equal on every rank: each element counted once
+    (a block replicated over an axis only on that axis's coordinate 0),
+    the ranks' sums added in rank order."""
+    from repro_torch.runtime.sharding import mesh_axes, sum_over
+
+    axes = mesh_axes(mesh)
+    coord = dict(zip(axes, mesh.get_coordinate()))
+
+    def counted(spec) -> bool:
+        named = {n for e in spec if e is not None for n in ((e,) if isinstance(e, str) else e)}
+        return all(coord[a] == 0 for a in axes if a not in named)
+
+    parts = [_sum_sq(t) for name, t in blocks.items() if counted(specs[name])]
+    device = next(iter(blocks.values())).device
+    local = sum(parts) if parts else torch.zeros((), dtype=torch.float32, device=device)
+    return torch.sqrt(sum_over(local, mesh, axes))
+
+
 def _f32(x: float, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
@@ -109,15 +129,19 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_update(cfg: AdamWConfig, grads: dict, state: OptState, params, *,
-                 decay: dict[str, bool] | None = None):
+                 decay: dict[str, bool] | None = None, gnorm: torch.Tensor | None = None):
     """One AdamW step with global-norm clipping and decoupled weight decay,
     written into ``params``, ``state.m`` and ``state.v``.  ``decay`` maps a
     parameter name to whether it decays (default: its own rank >= 2).
-    Returns (params, new state, metrics {"grad_norm", "lr"})."""
+    ``gnorm`` is the gradients' global norm when they are blocks of a mesh
+    (default: ``global_norm`` of ``grads``); the update is elementwise, so
+    it runs on blocks as on whole tensors.  Returns (params, new state,
+    metrics {"grad_norm", "lr"})."""
     params = _named(params)
     dt = _state_dt(cfg)
     with torch.no_grad():
-        gnorm = global_norm(grads[k] for k in params)
+        if gnorm is None:
+            gnorm = global_norm(grads[k] for k in params)
         dev = gnorm.device
         scale = torch.clamp(_f32(cfg.clip_norm, dev) / torch.clamp_min(gnorm, 1e-9), max=1.0)
         count = state.count + 1

@@ -2,9 +2,11 @@
 token), the counterparts of ``repro.train.serve_step`` with ``mesh=None``.
 
 Both steps run under ``torch.inference_mode()`` on the device the
-parameters live on; numpy inputs are moved there.  The LM wing's mesh arms
-are not ported yet, so ``mesh=`` other than None raises
-``NotImplementedError`` (ROADMAP.md, Open items §1, "LM mesh").
+parameters live on; numpy inputs are moved there.  The serve steps' mesh
+arms (tensor-parallel compute on "model", caches sharded on kv_heads or
+kv_seq) are not ported yet, so ``mesh=`` other than None raises
+``NotImplementedError`` (ROADMAP.md, Open items §1, "LM mesh").  Training
+on a mesh is ported (``train_step.build_train_step(mesh=)``).
 """
 from __future__ import annotations
 

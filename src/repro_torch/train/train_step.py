@@ -1,5 +1,5 @@
 """Training step of the LM wing: loss -> (microbatched) gradients -> AdamW,
-the counterpart of ``repro.train.train_step`` with ``mesh=None``.
+the counterpart of ``repro.train.train_step``.
 
 The step runs eagerly on the device the model lives on, outside
 ``torch.inference_mode`` (the serve steps' mode, whose tensors cannot enter
@@ -8,13 +8,26 @@ microbatches add them into accumulators of the reference's dtypes.  The
 remat policies checkpoint each repeat of the block pattern
 (``models.transformer._run_stacks``); the chunked loss checkpoints each
 chunk's head, so the float32 logits exist one chunk at a time in the
-backward as well.  The LM wing's mesh arms are not ported yet, so ``mesh=``
-other than None raises ``NotImplementedError`` (ROADMAP.md, Open items §1,
-"LM mesh").
+backward as well.
+
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, one process per
+card) every rank holds the parameters, gradients and AdamW state as its
+blocks of the reference's layout (``train.partition``: "embed" over the
+data axes, FSDP; heads/mlp/vocab/experts over "model").  Each rank computes
+its block of the batch rows: the ranks of one "model" row compute the same
+rows with the layer's weights gathered whole, redundantly, except in the
+manual MoE, which splits the experts; tensor-parallel compute on "model" is
+not ported.  A weight's gather is differentiable
+(``runtime.sharding.gather_param``): its backward sums the rows' gradients
+over the data axes and keeps the rank's block, so no rank holds a full
+gradient of the whole model.  The global norm counts each element once;
+AdamW then runs on the blocks.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
@@ -24,12 +37,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api as M
 from repro_torch.models import layers as L
-from repro_torch.models.sharding_ctx import refuse_mesh
+from repro_torch.models import sharding_ctx as S
+from repro_torch.runtime import sharding as sh
+from repro_torch.train import partition
 from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_init, adamw_update,
-                                         decay_mask)
+                                         decay_mask, global_norm_on_mesh)
 
 __all__ = ["TrainStepConfig", "softmax_xent", "loss_and_grads", "build_train_step",
-           "init_train_state"]
+           "init_train_state", "batch_shardings", "param_axes_for", "param_specs", "mesh_scope",
+           "to_blocks"]
 
 _POLICIES = {
     "none": None,
@@ -59,8 +75,9 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor):
     return torch.mean(logz - gold), torch.mean(torch.square(logz))
 
 
-def _chunk_sums(cfg, model, h, y):
-    logits = M.apply_head(cfg, model, h)
+def _chunk_sums(cfg, model, head: dict, h, y):
+    with S.swapped(model, head):
+        logits = M.apply_head(cfg, model, h)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
     return torch.sum(logz - gold), torch.sum(torch.square(logz))
@@ -69,15 +86,18 @@ def _chunk_sums(cfg, model, h, y):
 def _chunked_xent(cfg, tcfg: TrainStepConfig, model, hidden, labels):
     """Cross entropy and z over sequence chunks of the largest divisor of S
     that is <= ``loss_chunk``, each chunk's head recomputed in its backward;
-    float32 sums divided by B*S."""
+    float32 sums divided by B*S.  Under a mesh the head's weight is gathered
+    once and handed to every chunk."""
     b, s, _ = hidden.shape
     c = min(tcfg.loss_chunk, s)
     while s % c:
         c -= 1
+    tied = cfg.tie_embeddings or cfg.family == "encdec"
+    head = S.full_params(model, recurse=False, names=("embed",) if tied else ("lm_head",))
     xent_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     z_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(s // c):
-        xe, z = checkpoint(_chunk_sums, cfg, model, hidden[:, i * c:(i + 1) * c],
+        xe, z = checkpoint(_chunk_sums, cfg, model, head, hidden[:, i * c:(i + 1) * c],
                            labels[:, i * c:(i + 1) * c], use_reentrant=False,
                            preserve_rng_state=False)
         xent_sum, z_sum = xent_sum + xe, z_sum + z
@@ -117,23 +137,112 @@ def _accum_dtype(tcfg: TrainStepConfig, p: torch.Tensor) -> torch.dtype:
     return torch.promote_types(p.dtype, torch.float32)
 
 
-def loss_and_grads(cfg: ModelConfig, tcfg: TrainStepConfig, model, batch: dict):
+# ------------------------------------------------------------------- layout
+
+@functools.lru_cache(maxsize=32)
+def param_axes_for(cfg: ModelConfig):
+    """(abstract model on ``meta``, logical axes by parameter name), cached
+    per config."""
+    model = M.abstract_params(cfg)
+    return model, partition.param_logical_axes(model)
+
+
+def param_specs(cfg: ModelConfig, mesh) -> dict:
+    """Each parameter's ``PartitionSpec`` on ``mesh`` (shape-aware: a dim
+    that does not divide stays replicated)."""
+    model, logical = param_axes_for(cfg)
+    shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    return {name: ns.spec for name, ns in
+            partition.tree_shardings(logical, mesh, sh.DEFAULT_RULES, shapes=shapes).items()}
+
+
+def _kept_local(cfg: ModelConfig, mesh, specs: dict) -> dict:
+    """The manual MoE's expert weights stay local over "model" (each rank
+    computes its own experts); every other weight is gathered whole."""
+    if cfg.moe is None or cfg.moe_impl != "manual" or cfg.moe.n_experts % sh.axis_size(mesh, "model"):
+        return {}
+    _, logical = param_axes_for(cfg)
+    return {name: ("model",) for name, axes in logical.items()
+            if axes and axes[0] == "experts" and specs[name][0] is not None}
+
+
+def _shape(v) -> tuple:
+    return tuple(v.shape) if hasattr(v, "shape") else tuple(v[0])
+
+
+def batch_shardings(specs: dict, mesh) -> dict:
+    """Batch dim over the data axes; vlm ``positions`` (3, B, S) has it
+    second.  A batch dim that does not divide over them is replicated.
+    ``specs`` maps each input to an array, a tensor or ``(shape, dtype)``."""
+    dp = sh.batch_axes(mesh)
+
+    def shard(name, shape):
+        if name == "positions" and len(shape) == 3 and shape[0] == 3:
+            want = sh.P(None, dp, None)
+        else:
+            want = sh.P(*([dp] + [None] * (len(shape) - 1)))
+        return partition.divisible_sharding(mesh, want, shape)
+
+    return {k: shard(k, _shape(v)) for k, v in specs.items()}
+
+
+@contextlib.contextmanager
+def mesh_scope(cfg: ModelConfig, model, batch: dict, mesh):
+    """Installs ``mesh`` for layer code with ``model``'s parameters as this
+    rank's blocks, and yields this rank's block of ``batch``'s rows on its
+    device (the batch scope names the axes the rows were split over: none
+    when the batch dim does not divide)."""
+    specs = param_specs(cfg, mesh)
+    shardings = batch_shardings(batch, mesh)
+    axes: tuple[str, ...] = ()
+    for ns in shardings.values():
+        for entry in ns.spec:
+            if entry is not None:
+                axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    rows = {k: sh.shard_local(torch.as_tensor(v), mesh, shardings[k].spec)
+            for k, v in batch.items()}
+    layout = S.ParamLayout(mesh, model, specs, _kept_local(cfg, mesh, specs))
+    with S.activation_sharding_scope(mesh, layout=layout, batch_axes=axes):
+        yield rows
+
+
+# -------------------------------------------------------------------- steps
+
+def loss_and_grads(cfg: ModelConfig, tcfg: TrainStepConfig, model, batch: dict, *, mesh=None):
     """-> (loss, {"xent", "moe_aux"}, gradients by parameter name) for a
     batch of tensors on the model's device.  With microbatches the gradients
     are summed in the accumulators' dtypes and divided by n, the loss is the
-    mean over microbatches and the other metrics are the last one's."""
+    mean over microbatches and the other metrics are the last one's.
+
+    With ``mesh`` the model holds this rank's blocks and ``batch`` is the
+    whole batch (host arrays or tensors): each microbatch takes its rows of
+    the whole batch first, then this rank's block of those rows (the order
+    in which the rows share an MoE capacity budget).  The gradients are the
+    rank's blocks; the metrics, means over the data rows, are equal on
+    every rank."""
     policy = _POLICIES[tcfg.remat]
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
+    if mesh is not None:
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+
+    def row_mean(x):
+        scope = S.current_scope()
+        n = 1 if scope is None else sh.axis_size(mesh, scope.batch_axes)
+        return x if n == 1 else sh.sum_over(x, mesh, scope.batch_axes) / float(n)
 
     def one(mb):
-        with torch.enable_grad():
+        scope = (contextlib.nullcontext(mb) if mesh is None
+                 else mesh_scope(cfg, model, mb, mesh))
+        with scope as mb, torch.enable_grad():
             loss, metrics = _loss_fn(cfg, tcfg, model, mb, policy)
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            loss, metrics = row_mean(loss.detach()), {k: row_mean(v.detach())
+                                                      for k, v in metrics.items()}
         grads = {name: torch.zeros_like(p) if g is None else g
                  for (name, p), g in zip(params.items(), grads)}
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        return loss, metrics, grads
 
     n = tcfg.n_microbatches
     if n == 1:
@@ -152,36 +261,72 @@ def loss_and_grads(cfg: ModelConfig, tcfg: TrainStepConfig, model, batch: dict):
 
 
 def build_train_step(cfg: ModelConfig, *, tcfg: TrainStepConfig = TrainStepConfig(),
-                     mesh=None, donate: bool = True) -> Callable:
+                     mesh=None, rules=sh.DEFAULT_RULES, donate: bool = True) -> Callable:
     """Returns ``step(model, opt_state, batch) -> (model, opt_state,
     metrics)``; ``batch`` holds numpy arrays or tensors (moved to the model's
     device).  ``donate=True`` updates the given model and state in place and
     returns them; ``donate=False`` leaves them untouched and returns new
     ones.  ``metrics`` are float32 0-d tensors: loss, xent, moe_aux,
-    grad_norm and lr."""
-    refuse_mesh(mesh)
+    grad_norm and lr.
+
+    With ``mesh`` (a ``DeviceMesh``; anything else raises ``TypeError``)
+    the model and state are this rank's blocks (``init_train_state(mesh=)``)
+    and ``batch`` is the whole batch; every rank gets the same metrics.
+    ``rules`` is the reference's argument: the blocks are cut by
+    ``DEFAULT_RULES`` everywhere (initialization, the step, checkpoints), so
+    any other value raises ``ValueError``."""
+    if rules != sh.DEFAULT_RULES:
+        raise ValueError("the port cuts parameter blocks by DEFAULT_RULES only")
     decay = decay_mask(cfg, M.abstract_params(cfg))
+    specs = None
+    if mesh is not None:
+        sh.check_mesh(mesh)
+        specs = param_specs(cfg, mesh)
 
     def step(model, opt_state: OptState, batch: dict):
-        dev = model.embed.device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if mesh is None:
+            dev = model.embed.device
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if not donate:
             model = copy.deepcopy(model)
             opt_state = OptState({k: t.clone() for k, t in opt_state.m.items()},
                                  {k: t.clone() for k, t in opt_state.v.items()},
                                  opt_state.count.clone())
-        loss, metrics, grads = loss_and_grads(cfg, tcfg, model, batch)
+        loss, metrics, grads = loss_and_grads(cfg, tcfg, model, batch, mesh=mesh)
+        gnorm = None if mesh is None else global_norm_on_mesh(grads, mesh, specs)
         _, new_opt, opt_metrics = adamw_update(tcfg.optimizer, grads, opt_state, model,
-                                               decay=decay)
+                                               decay=decay, gnorm=gnorm)
         return model, new_opt, {"loss": loss, **metrics, **opt_metrics}
 
     return step
 
 
+def to_blocks(model, mesh, specs: dict):
+    """Replace each parameter of ``model`` by this rank's block of it under
+    ``specs`` (on the rank's device), one at a time, freeing the whole one.
+    A block cut along a tensor's first dim is a contiguous view of it, which
+    would keep the whole storage alive: each block is its own copy."""
+    for name in [n for n, _ in model.named_parameters()]:
+        path, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(path) if path else model
+        full = owner._parameters[leaf]
+        block = sh.shard_local(full.detach(), mesh, specs[name])
+        if block.untyped_storage().data_ptr() == full.untyped_storage().data_ptr():
+            block = block.clone()
+        owner._parameters[leaf] = torch.nn.Parameter(block, requires_grad=full.requires_grad)
+        del full, block
+    return model
+
+
 def init_train_state(cfg: ModelConfig, tcfg: TrainStepConfig, generator: torch.Generator | None,
-                     *, device="cuda", max_positions: int = 4096):
+                     *, device="cuda", max_positions: int = 4096, mesh=None):
     """(model with gradients on, zero AdamW state) on ``device``, weights
-    drawn from ``generator`` (a generator on that device)."""
+    drawn from ``generator`` (a generator on that device).  With ``mesh``
+    each rank draws the whole model, as the one-card path does, and keeps
+    its blocks."""
     model = M.init_model(cfg, generator=generator, device=device, max_positions=max_positions)
+    if mesh is not None:
+        sh.check_mesh(mesh)
+        to_blocks(model, mesh, param_specs(cfg, mesh))
     model.requires_grad_(True)
     return model, adamw_init(tcfg.optimizer, model)

@@ -357,14 +357,16 @@ def test_serve_steps_match_reference(arch):
 
 
 def test_a_mesh_is_refused():
-    """The LM mesh arms are not ported: a mesh raises, it is not ignored."""
+    """The serve steps' mesh arms are not ported: a mesh raises, it is not
+    ignored.  The scope takes only a ``DeviceMesh`` (the training mesh,
+    ``tests/test_torch_lm_mesh.py``)."""
     cfg = PC.get_config("gemma2-9b").reduced()
     shape = PC.ShapeConfig("serve", seq_len=CAP, global_batch=B, kind="prefill")
     mesh = object()
     for build in (PS.build_prefill_step, PS.build_decode_step):
         with pytest.raises(NotImplementedError, match="LM mesh"):
             build(cfg, shape, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="LM mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         with sharding_ctx.activation_sharding_scope(mesh):
             pass
     with sharding_ctx.activation_sharding_scope(None):

@@ -176,7 +176,9 @@ def test_donate_updates_in_place():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="LM mesh"):
+    """A mesh is a ``torch.distributed`` ``DeviceMesh`` (the mesh step runs
+    in ``tests/test_torch_lm_mesh.py``); any other object is refused."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_train_step(get_config("gemma-7b").reduced(), mesh=object())
 
 

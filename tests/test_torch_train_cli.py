@@ -67,8 +67,13 @@ def test_cli_logs_checkpoints_and_resumes(tmp_path):
     assert flat["o/m/pattern/[0]/moe/w_in"].shape == (2, 4, 64, 64)
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="LM mesh"):
+def test_mesh_raises(monkeypatch):
+    """``--mesh pod`` with no torch.distributed world (none initialized, no
+    torchrun environment) raises; it never falls back to one process.  The
+    mesh runs in ``tests/test_torch_lm_mesh.py``."""
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         port_train.main(["--arch", ARCH, "--reduced", "--mesh", "pod", "--device", "cpu"])
 
 
