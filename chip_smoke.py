@@ -170,6 +170,12 @@ Phases, each printing one JSON line:
                   the gather and the gradient reduce are identities), then
                   one step of ``launch/train.py --reduced --mesh pod`` on that
                   world
+  lm_serve_mesh_one  LM serving on a mesh: a world of one over NCCL, mesh
+                  (1, 1); gemma2-9b at full width, one repeat of its pattern,
+                  B=4: a 512-token prefill into 544-slot caches and 8 decode
+                  steps through ``build_prefill_step(mesh=)`` /
+                  ``build_decode_step(mesh=)``, logits and every cache
+                  tensor bitwise equal to ``mesh=None``
 
 The LM phases launch none of the repo's kernels: each reads the counts and
 fails unless all are 0.  Each path's launch counts are set to 0 just before it runs and read just
@@ -183,7 +189,7 @@ runs the device phase and the named phases among ``build``, ``kernel`` and
 ``kernel_tstat`` only (a quick check of the kernels); it prints neither the
 ``kernels`` line nor the ``ok`` line.  ``--only lm_serve`` (and
 ``lm_parity``, ``lm_families``, ``lm_train_parity``, ``lm_train_families``,
-``lm_train``, ``lm_mesh_one``) runs one LM phase alone the same way.  On a machine with two or more cards,
+``lm_train``, ``lm_mesh_one``, ``lm_serve_mesh_one``) runs one LM phase alone the same way.  On a machine with two or more cards,
 
     python3 chip_smoke.py --only build,devices
 
@@ -227,7 +233,32 @@ bytes each rank received through collectives a step, the FLOP bound
 of it, one more step under ``torch.profiler`` on every rank (busy share,
 top kernels), and two identical passes compared (the differing gradients
 named).
-(c) Every rank's launch counts of the repo's kernels read 0.
+(c) Every rank's launch counts of the repo's kernels read 0.  On 4 cards,
+
+    python3 chip_smoke.py --only build,lm_serve_mesh
+
+runs the LM serve steps on a mesh, one process per card over NCCL (fewer
+cards: an error), with attention, the MLP, the embedding and the head
+split over "model".  (a) Parity: gemma2-9b, qwen1.5-32b and
+recurrentgemma-2b at ``reduced()`` in float32, B=4, a 24-token prompt into
+32-slot caches and 8 decode steps, on (2, 2) and (1, 4) against
+``mesh=None`` on ``cuda:0`` from the same weights: logits of every step and
+the gathered caches within 1e-4 * max |ref|, every rank's gathered results
+the same bits; then gemma2-9b and qwen1.5-32b at full width, one repeat of
+the pattern, in bfloat16, B=4, a 512-token prompt into 544-slot caches and
+8 decode steps, on (1, 4) against ``mesh=None`` on ``cuda:0`` from the same
+weights: the mesh's logits and caches no further from the same weights
+served in float32 than 4x ``mesh=None``'s bfloat16 error (a wrong split is
+off by the size of the values), positions equal.  (b) qwen1.5-32b whole in bfloat16 on (1, 4), weights drawn
+a parameter at a time (``models.convert.init_blocks``): 8 requests of
+4,096 prompt tokens into 4,160-slot caches, then 64 greedy decode steps;
+``prefill_s``, decode ms per step (median, p95) and tokens/s, each rank's
+bytes at rest (weights, caches) and at peak (under 80 GB), the bytes each
+rank moved through collectives per prefill and per decode step, the
+kernels per decode step and one more prefill under ``torch.profiler``,
+and each time beside its bound (prefill: ``launch.roofline.model_flops`` at 4 x 989 TFLOP/s;
+decode: a rank's weights and caches read once at 3.35 TB/s).  (c) Every
+rank's launch counts of the repo's kernels read 0.
 """
 from __future__ import annotations
 
@@ -364,6 +395,24 @@ LM_MESH = dict(arch="gemma2-9b", batch=8, seq=512, seed=2026, loss_rel=1e-5, gra
                moe_cost=dict(batch=4, seq=4096, steps=4, remat="dots", loss_chunk=1024),
                whole=dict(batch=16, seq=4096, steps=6, n_microbatches=4, remat="full",
                           loss_chunk=512))
+# LM serving on a mesh.  lm_serve_mesh_one: gemma2-9b at full width, one
+# repeat of its pattern, on a world of one: prefill and 8 decode steps
+# through the mesh arms bitwise equal to mesh=None.  lm_serve_mesh (4
+# cards): (a) parity at reduced() in float32 on (2, 2) and (1, 4) against
+# mesh=None on cuda:0, and at full width (one repeat of the pattern) in
+# bfloat16 on (1, 4), held to mesh=None's own bfloat16 error; (b) qwen1.5-32b whole in bfloat16 on (1, 4)
+# (src/repro/configs/qwen15_32b.py, 70.4 GB of weights: more than one
+# card), weights drawn a parameter at a time: 8 requests of 4,096 prompt
+# tokens into caches of 4,160 positions, then 64 greedy decode steps.
+LM_SERVE_MESH_ONE = dict(arch="gemma2-9b", batch=4, prompt=512, capacity=544, steps=8,
+                         seed=2026)
+LM_SERVE_MESH = dict(archs=("gemma2-9b", "qwen1.5-32b", "recurrentgemma-2b"),
+                     shapes=((2, 2), (1, 4)), batch=4, prompt=24, capacity=32, steps=8,
+                     seed=2026, rel=1e-4,
+                     full=dict(archs=("gemma2-9b", "qwen1.5-32b"), shape=(1, 4), batch=4,
+                               prompt=512, capacity=544, steps=8, factor=4.0),
+                     whole=dict(arch="qwen1.5-32b", shape=(1, 4), batch=8, prompt=4096,
+                                capacity=4160, steps=64, peak_limit=80e9))
 
 
 def emit(obj: dict) -> None:
@@ -2486,10 +2535,11 @@ def _serve_seq(cfg, model, prompt: dict, cont, capacity: int, oracle_batch: dict
 
 def _device_profile(fn, calls: int, top: int = 0) -> dict:
     """``calls`` calls of ``fn`` under ``torch.profiler`` (CPU and CUDA
-    activity): wall time, the card's kernel time (one stream: kernels do not
-    overlap) and kernels per call.  ``device_busy_share`` is kernel time over
-    wall time; None when the trace holds no kernel.  With ``top``, the
-    ``top`` kernel names by card time (ms per call)."""
+    activity): wall time, the card's kernel time (kernels of one stream do
+    not overlap; NCCL's run on their own stream) and kernels per call.
+    ``device_busy_share`` is kernel time over wall time; None when the
+    trace holds no kernel.  With ``top``, the ``top`` kernel names by card
+    time (ms per call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2501,7 +2551,10 @@ def _device_profile(fn, calls: int, top: int = 0) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # NCCL also records an "nccl:<op>" range on the device timeline beside
+    # its kernel: count the kernel only
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("nccl:")]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     out = {"wall_ms": 1e3 * wall / calls, "device_ms": busy_us / 1e3 / calls,
            "kernels_per_call": len(kernels) / calls,
@@ -3484,6 +3537,345 @@ def phase_lm_mesh() -> dict:
     return row
 
 
+# ------------------------------------------------- LM serving on a mesh
+
+
+def _serve_on(cfg, model, mesh, prompt: dict, cont, capacity: int):
+    """Prefill ``prompt``, then decode the tokens ``cont`` (B, n) one by one
+    (teacher forced) through the serve steps on ``mesh`` (None: without a
+    mesh) -> (every step's logits, the caches)."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import build_decode_step, build_prefill_step
+
+    b, n = cont.shape
+    s = _prompt_len(cfg, prompt)
+    shape = ShapeConfig("serve", seq_len=capacity, global_batch=b, kind="prefill")
+    logits, caches = build_prefill_step(cfg, shape, mesh=mesh)(model, prompt)
+    out = [logits]
+    decode = build_decode_step(cfg, shape, mesh=mesh)
+    for i in range(n):
+        logits, caches = decode(model, cont[:, i], np.full((b,), s + i, np.int32), caches)
+        out.append(logits)
+    return out, caches
+
+
+def _cache_tensors(caches) -> list:
+    """Every tensor of a cache structure, in order (None fields skipped)."""
+    import torch
+
+    if caches is None:
+        return []
+    if isinstance(caches, torch.Tensor):
+        return [caches]
+    if isinstance(caches, dict):
+        return [t for k in sorted(caches) for t in _cache_tensors(caches[k])]
+    return [t for c in caches for t in _cache_tensors(c)]
+
+
+def _serve_inputs(cfg, b: int, s: int, n: int, seed: int):
+    """A ``make_batch`` prompt of ``s`` positions and ``n`` continuation
+    tokens (host arrays)."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import make_batch
+
+    prompt = make_batch(cfg, ShapeConfig("prompt", s, b, "prefill"), 0, seed=seed)
+    prompt.pop("labels")
+    cont = np.random.default_rng(seed + 1).integers(0, cfg.vocab, (b, n)).astype(np.int32)
+    return prompt, cont
+
+
+def _lm_serve_mesh_one_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
+    """lm_serve_mesh_one on its one rank: the same weights (drawn from the
+    seeded generator on the card) served with and without the (1, 1) mesh,
+    compared bit for bit (every step's logits, every cache tensor)."""
+    import torch
+
+    from repro_torch.models import api as M
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.train.train_step import param_specs, to_blocks
+
+    dev = sh.local_device(mesh)
+    cfg = _one_repeat(_lm_config(p["arch"]))
+    prompt, cont = _serve_inputs(cfg, p["batch"], p["prompt"], p["steps"], p["seed"])
+    model = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(p["seed"]),
+                         device=dev)
+    (want, want_caches), none_s = _timed(lambda: _serve_on(cfg, model, None, prompt, cont,
+                                                           p["capacity"]))
+    to_blocks(model, mesh, param_specs(cfg, mesh))
+    reset_launches()
+    (got, got_caches), mesh_s = _timed(lambda: _serve_on(cfg, model, mesh, prompt, cont,
+                                                         p["capacity"]))
+    launches = read_launches()
+    a, b = _cache_tensors(want_caches), _cache_tensors(got_caches)
+    differ = ([f"logits {i}" for i, (x, y) in enumerate(zip(got, want)) if not torch.equal(x, y)]
+              + [f"cache tensor {i}" for i, (x, y) in enumerate(zip(b, a))
+                 if not torch.equal(x, y)])
+    if len(a) != len(b):
+        differ.append(f"{len(b)} cache tensors, not {len(a)}")
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "cache_tensors": len(a), "serve_s": {"none": none_s, "mesh": mesh_s},
+            "finite": bool(all(torch.isfinite(x).all() for x in got)),
+            "differing": differ, "launches": launches}
+
+
+def phase_lm_serve_mesh_one() -> dict:
+    """The default run's LM serve mesh phase: a world of one over NCCL, mesh
+    (1, 1).  gemma2-9b at full width, one repeat of its pattern: prefill and
+    8 decode steps through the serve steps' mesh arms bitwise equal to
+    mesh=None; no kernel of the repo launched."""
+    p = LM_SERVE_MESH_ONE
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_serve_mesh_")
+    try:
+        res = _spawn_world(tmp, (1, 1), p, body="_lm_serve_mesh_one_rank")[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(res["finite"], "lm_serve_mesh_one: non-finite logits")
+    check(not res["differing"], f"lm_serve_mesh_one: mesh (1, 1) differs from mesh=None: "
+          f"{res['differing'][:8]}")
+    check(not any(res["launches"].values()),
+          f"lm_serve_mesh_one: kernels launched: {res['launches']}")
+    emit({"phase": "lm_serve_mesh_one", "world": 1, "shape": [1, 1], "backend": "nccl",
+          "arch": p["arch"], "batch": p["batch"], "prompt": p["prompt"],
+          "capacity": p["capacity"], "steps": p["steps"], "bitwise_equal_mesh_none": True,
+          **res})
+    return res
+
+
+def _greedy(logits, mesh):
+    """Each row's argmax over the vocab, whose columns are split over
+    "model" when the logits are a block: the ranks' (max, index) pairs
+    gathered, the first of the largest taken (as ``argmax``)."""
+    import torch
+
+    from repro_torch.runtime import sharding as sh
+
+    n = logits.shape[1]
+    first = sh.axis_index(mesh, "model") * n
+    vals, idx = logits.max(dim=-1)
+    pairs = sh.axis_rows(torch.stack([vals, (idx + first).float()], dim=-1), mesh, "model")
+    best = torch.argmax(pairs[..., 0], dim=0)                         # (B,)
+    return pairs[best, torch.arange(pairs.shape[1], device=best.device), 1].to(torch.int32)
+
+
+def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
+    """lm_serve_mesh on one of 4 ranks (module docstring: parts (a) and
+    (b))."""
+    import copy
+    import gc
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.launch.roofline import HW, model_flops
+    from repro_torch.models import api as M
+    from repro_torch.models import convert
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.train import build_decode_step, build_prefill_step
+    from repro_torch.train.serve_step import cache_specs
+    from repro_torch.train.train_step import param_specs, to_blocks
+
+    dev = sh.local_device(mesh)
+    meshes = {"x".join(map(str, s)): make_mesh(s, ("data", "model")) for s in p["shapes"]}
+    reset_launches()
+    out = {"rank": rank, "meshes": {k: describe(m) for k, m in meshes.items()}, "parity": {}}
+
+    # (a) reduced(), float32, against mesh=None on cuda:0
+    for arch in p["archs"]:
+        cfg = dataclasses.replace(_lm_config(arch).reduced(), dtype="float32")
+        prompt, cont = _serve_inputs(cfg, p["batch"], p["prompt"], p["steps"], p["seed"])
+        make = lambda: M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(  # noqa: E731
+            p["seed"]), device=dev, max_positions=64)
+        want = _serve_on(cfg, make(), None, prompt, cont, p["capacity"]) if rank == 0 else None
+        shape = ShapeConfig("serve", seq_len=p["capacity"], global_batch=p["batch"],
+                            kind="prefill")
+        for label, m in meshes.items():
+            model = to_blocks(make(), m, param_specs(cfg, m))
+            logits, caches = _serve_on(cfg, model, m, prompt, cont, p["capacity"])
+            logits = [sh.gather_full(x, m, sh.P(sh.batch_axes(m), "model")) for x in logits]
+            whole = _cache_tensors(convert.caches_from_blocks(caches, cache_specs(cfg, shape, m), m))
+            digest = hashlib.sha256()
+            for t in logits + whole:
+                digest.update(t.cpu().contiguous().view(torch.uint8).numpy().tobytes())
+            row = {"digest": digest.hexdigest()}
+            if want is not None:
+                ref = _cache_tensors(want[1])
+                row["logits_max_rel_err"] = max(_max_rel(g, w) for g, w in zip(logits, want[0]))
+                row["caches_max_rel_err"] = max(
+                    (_max_rel(g, w) for g, w in zip(whole, ref) if w.dtype != torch.int32),
+                    default=0.0)
+                row["positions_equal"] = len(whole) == len(ref) and all(
+                    torch.equal(g, w) for g, w in zip(whole, ref) if w.dtype == torch.int32)
+            out["parity"][f"{arch} {label}"] = row
+            del model, caches, whole
+        del want
+    torch.cuda.empty_cache()
+
+    # (a) at full width, one repeat of the pattern, bfloat16, on (1, 4): the
+    # split paths at the published head counts, widths and vocab, against
+    # mesh=None on cuda:0 from the same weights.  Bound: the mesh's error
+    # against the same weights in float32 at most ``factor`` times mesh=None's
+    # own bfloat16 error (a wrong split is off by the size of the values).
+    f = p["full"]
+    m = meshes["x".join(map(str, f["shape"]))]
+    for arch in f["archs"]:
+        cfg = _one_repeat(_lm_config(arch))
+        prompt, cont = _serve_inputs(cfg, f["batch"], f["prompt"], f["steps"], p["seed"])
+        shape = ShapeConfig("serve", seq_len=f["capacity"], global_batch=f["batch"],
+                            kind="prefill")
+        model = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(p["seed"]),
+                             device=dev)
+        if rank == 0:
+            exact = _serve_on(dataclasses.replace(cfg, dtype="float32"),
+                              copy.deepcopy(model).float(), None, prompt, cont, f["capacity"])
+            plain = _serve_on(cfg, model, None, prompt, cont, f["capacity"])
+        to_blocks(model, m, param_specs(cfg, m))
+        logits, caches = _serve_on(cfg, model, m, prompt, cont, f["capacity"])
+        logits = [sh.gather_full(x, m, sh.P(sh.batch_axes(m), "model")) for x in logits]
+        whole = _cache_tensors(convert.caches_from_blocks(caches, cache_specs(cfg, shape, m), m))
+        del model, caches
+        if rank == 0:
+            ref = _cache_tensors(exact[1])
+
+            def errs(got_logits, got_caches):
+                return (max(_max_rel(g, w) for g, w in zip(got_logits, exact[0])),
+                        max(_max_rel(g, w) for g, w in zip(got_caches, ref)
+                            if w.dtype != torch.int32))
+
+            mesh_err, plain_err = errs(logits, whole), errs(plain[0], _cache_tensors(plain[1]))
+            out["parity"][f"{arch} full bf16 {'x'.join(map(str, f['shape']))}"] = {
+                "n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                "n_kv_heads": cfg.n_kv_heads, "padded_vocab": cfg.padded_vocab,
+                "logits_max_rel_err": mesh_err[0], "caches_max_rel_err": mesh_err[1],
+                "plain_logits_max_rel_err": plain_err[0],
+                "plain_caches_max_rel_err": plain_err[1], "factor": f["factor"],
+                "within": (mesh_err[0] <= f["factor"] * plain_err[0]
+                           and mesh_err[1] <= f["factor"] * plain_err[1]),
+                "positions_equal": len(whole) == len(ref) and all(
+                    torch.equal(g, w) for g, w in zip(whole, ref) if w.dtype == torch.int32)}
+            del exact, plain
+        del logits, whole
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (b) qwen1.5-32b whole, bfloat16, on (1, 4)
+    w = p["whole"]
+    m = meshes["x".join(map(str, w["shape"]))]
+    cfg = _lm_config(w["arch"])
+    prompt, _ = _serve_inputs(cfg, w["batch"], w["prompt"], 1, p["seed"])
+    shape = ShapeConfig("serve", seq_len=w["capacity"], global_batch=w["batch"], kind="prefill")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _timed(lambda: convert.init_blocks(cfg, p["seed"], mesh=m,
+                                                          specs=param_specs(cfg, m)))
+    weights = torch.cuda.memory_allocated() - base
+    init_peak = torch.cuda.max_memory_allocated() - base
+    prefill, decode = build_prefill_step(cfg, shape, mesh=m), build_decode_step(cfg, shape, mesh=m)
+    sh.collective_bytes = 0
+    (logits, caches), prefill_s = _timed(lambda: prefill(model, prompt))
+    prefill_bytes = sh.collective_bytes
+    cache_bytes = sum(t.numel() * t.element_size() for t in _cache_tensors(caches))
+    finite = bool(torch.isfinite(logits).all())
+    token = _greedy(logits, m)
+    tokens = [token]
+    step_s, step_bytes = [], []
+    for i in range(w["steps"] - 1):
+        pos = torch.full((w["batch"],), w["prompt"] + i, dtype=torch.int32, device=dev)
+        sh.collective_bytes = 0
+        (logits, caches), dt = _timed(lambda: decode(model, token, pos, caches))
+        step_bytes.append(sh.collective_bytes)
+        step_s.append(dt)
+        finite = finite and bool(torch.isfinite(logits).all())
+        token = _greedy(logits, m)
+        tokens.append(token)
+    pos = torch.full((w["batch"],), w["prompt"] + w["steps"] - 1, dtype=torch.int32, device=dev)
+    profile = _device_profile(lambda: decode(model, token, pos, caches), 1, top=8)
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = finite and all(bool(torch.isfinite(t.float()).all())
+                            for t in _cache_tensors(caches) if t.is_floating_point())
+    del caches, logits
+    torch.cuda.empty_cache()
+    prefill_profile = _device_profile(lambda: prefill(model, prompt), 1, top=8)
+    launches = read_launches()
+    del model
+    torch.cuda.empty_cache()
+    warm = sorted(1e3 * t for t in step_s[1:])
+    flops = model_flops(cfg, ShapeConfig("prefill", w["prompt"], w["batch"], "prefill"))
+    world = sh.axis_size(m, ("data", "model"))
+    out["whole"] = {
+        "arch": w["arch"], "n_layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+        "mesh": describe(m), "batch": w["batch"], "prompt": w["prompt"],
+        "capacity": w["capacity"], "decode_steps": w["steps"], "init_s": init_s,
+        "weights_bytes": weights, "cache_bytes": cache_bytes, "init_peak_bytes": init_peak,
+        "peak_bytes": peak, "prefill_s": prefill_s,
+        "prefill_bound_s": flops / (world * HW().peak_flops), "prefill_flops": flops,
+        "prefill_collective_bytes": prefill_bytes, "decode_step_ms": [1e3 * t for t in step_s],
+        "decode_step_ms_median": statistics.median(warm),
+        "decode_step_ms_p95": warm[min(len(warm) - 1, math.ceil(0.95 * len(warm)) - 1)],
+        "decode_bound_ms": 1e3 * (weights + cache_bytes) / HBM_BYTES_S,
+        "decode_collective_bytes_per_step": statistics.median(step_bytes),
+        "decode_profile": profile, "prefill_profile": prefill_profile, "finite": finite,
+        "tokens_digest": hashlib.sha256(torch.stack(tokens).cpu().numpy().tobytes()).hexdigest(),
+    }
+    out["whole"]["decode_tokens_per_s"] = w["batch"] / (out["whole"]["decode_step_ms_median"] / 1e3)
+    out["launches"] = launches
+    return out
+
+
+def phase_lm_serve_mesh() -> dict:
+    """``--only build,lm_serve_mesh`` on 4 cards: the LM serve steps on a
+    mesh, one process per card over NCCL (module docstring).  Fewer cards:
+    an error."""
+    import torch
+
+    n = torch.cuda.device_count()
+    check(n >= 4, f"lm_serve_mesh needs 4 cards, found {n}")
+    p = LM_SERVE_MESH
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_serve_mesh_")
+    try:
+        ranks = _spawn_world(tmp, (2, 2), p, body="_lm_serve_mesh_rank")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    for label, row in r0["parity"].items():
+        if "factor" in row:       # full width, bfloat16
+            check(row["within"] and row["positions_equal"], f"lm_serve_mesh parity {label}: {row}")
+            continue
+        check(row["logits_max_rel_err"] <= p["rel"] and row["caches_max_rel_err"] <= p["rel"]
+              and row["positions_equal"], f"lm_serve_mesh parity {label}: {row}")
+        check(all(r["parity"][label]["digest"] == row["digest"] for r in ranks),
+              f"lm_serve_mesh parity {label}: the ranks' gathered results differ")
+    whole = [r["whole"] for r in ranks]
+    check(all(x["finite"] for x in whole), "lm_serve_mesh: non-finite logits or caches")
+    check(len({x["tokens_digest"] for x in whole}) == 1,
+          "lm_serve_mesh: the ranks' greedy tokens differ")
+    peaks = [x["peak_bytes"] for x in whole]
+    check(max(peaks) < p["whole"]["peak_limit"], f"lm_serve_mesh: per-rank peaks {peaks}")
+    for r in ranks:
+        check(not any(r["launches"].values()), f"lm_serve_mesh: kernels launched {r['launches']}")
+    w0 = whole[0]
+    row = {"phase": "lm_serve_mesh", "cards": n, "backend": "nccl", "meshes": r0["meshes"],
+           "parity": {k: {kk: vv for kk, vv in v.items() if kk != "digest"}
+                      for k, v in r0["parity"].items()},
+           "whole": {**w0, **{f"{k}_per_rank": [x[k] for x in whole] for k in
+                              ("weights_bytes", "cache_bytes", "init_peak_bytes", "peak_bytes",
+                               "prefill_s", "decode_step_ms_median",
+                               "prefill_collective_bytes", "decode_collective_bytes_per_step")}},
+           "launches": [r["launches"] for r in ranks], "spawn_s": r0["spawn_s"]}
+    row["whole"]["prefill_share_of_bound"] = w0["prefill_bound_s"] / w0["prefill_s"]
+    row["whole"]["decode_share_of_bound"] = w0["decode_bound_ms"] / w0["decode_step_ms_median"]
+    emit(row)
+    return row
+
+
 def _scan_study(files: dict):
     import numpy as np
 
@@ -3509,7 +3901,8 @@ QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": ph
                 "lm_parity": phase_lm_parity, "lm_serve": phase_lm_serve,
                 "lm_families": phase_lm_families, "lm_train_parity": phase_lm_train_parity,
                 "lm_train_families": phase_lm_train_families, "lm_train": phase_lm_train,
-                "lm_mesh_one": phase_lm_mesh_one, "lm_mesh": phase_lm_mesh}
+                "lm_mesh_one": phase_lm_mesh_one, "lm_mesh": phase_lm_mesh,
+                "lm_serve_mesh_one": phase_lm_serve_mesh_one, "lm_serve_mesh": phase_lm_serve_mesh}
 
 
 def main(argv: list[str]) -> int:
@@ -3565,6 +3958,7 @@ def main(argv: list[str]) -> int:
     phase_lm_train_families()
     phase_lm_train()
     phase_lm_mesh_one()
+    phase_lm_serve_mesh_one()
     kernels = [{
         "name": "gwas_dot",
         "route": "cuda",

@@ -6,6 +6,9 @@ Models live on ``cuda`` unless the caller asks for another device; with no
 card that is an error (``runtime.device.resolve_device``), never a quiet
 move to the CPU.  ``input_specs`` gives ``(shape, torch.dtype)`` for every
 input of an (arch x shape) cell, the vlm/audio stub embeddings included.
+Under a serve scope that splits "model" (``train.serve_step``'s mesh arms)
+``serve_prefill``, ``serve_decode`` and ``abstract_caches`` take and give
+this rank's blocks.
 """
 from __future__ import annotations
 
@@ -120,7 +123,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple[tuple[i
 
 def abstract_caches(cfg: ModelConfig, shape: ShapeConfig) -> list:
     """The caches of a decode cell (capacity = ``shape.seq_len``) on the
-    ``meta`` device: one entry per layer, as prefill builds them."""
+    ``meta`` device: one entry per layer, as prefill builds them (this
+    rank's blocks under a serve scope that splits "model")."""
     b, s = shape.global_batch, shape.seq_len
     meta = torch.device("meta")
     if cfg.family == "encdec":

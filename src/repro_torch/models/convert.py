@@ -13,8 +13,15 @@ across and compare gradients and caches.  The port itself needs the
 reference's layout twice: its checkpoints use the reference's flat keys
 (``reference_flat``, ``load_reference_flat``), and AdamW decays a
 parameter by its rank there (``reference_ndims``).
+
+On a mesh, ``caches_to_blocks`` / ``caches_from_blocks`` cut global caches
+into a rank's blocks and gather them back (bit for bit), and
+``init_blocks`` draws one rank's parameter blocks a parameter at a time, so
+no rank ever holds the whole model.
 """
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
@@ -27,7 +34,8 @@ from repro_torch.models.transformer import stack_geometry
 
 __all__ = ["params_from_jax", "params_to_numpy", "opt_state_to_numpy", "caches_from_jax",
            "caches_to_numpy", "load_params", "to_torch", "reference_keys", "reference_ndims",
-           "reference_items", "reference_flat", "load_reference_flat"]
+           "reference_items", "reference_flat", "load_reference_flat", "map_caches", "caches_to_blocks",
+           "caches_from_blocks", "init_blocks"]
 
 
 def to_torch(arr, device) -> torch.Tensor:
@@ -290,3 +298,72 @@ def caches_to_numpy(cfg: ModelConfig, caches: list):
     k = len(cfg.block_pattern)
     pattern = [_stack([caches[r * k + pos] for r in range(reps)]) for pos in range(k)] if reps else []
     return [pattern, [_unstacked(c) for c in caches[reps * k:]]]
+
+
+def map_caches(fn, caches, specs):
+    """``fn(tensor, spec)`` over every cache tensor, in the caches' own
+    structure; ``specs`` has that structure with one value a tensor
+    (``train.serve_step.cache_specs``, ``partition.cache_logical_axes``)."""
+    if caches is None:
+        return None
+    if isinstance(caches, L.LayerCache):
+        return L.LayerCache(*(map_caches(fn, c, sp) for c, sp in zip(caches, specs)))
+    if isinstance(caches, dict):
+        return {k: map_caches(fn, v, specs[k]) for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return type(caches)(map_caches(fn, c, sp) for c, sp in zip(caches, specs))
+    return fn(caches, specs)
+
+
+def caches_to_blocks(caches, specs, mesh) -> list:
+    """Global caches (tensors) -> this rank's blocks under ``specs``, on the
+    rank's device."""
+    from repro_torch.runtime import sharding as sh
+
+    return map_caches(lambda t, sp: sh.shard_local(t, mesh, sp), caches, specs)
+
+
+def caches_from_blocks(caches, specs, mesh) -> list:
+    """This rank's cache blocks -> the global caches, on every rank."""
+    from repro_torch.runtime import sharding as sh
+
+    return map_caches(lambda t, sp: sh.gather_full(t, mesh, sp), caches, specs)
+
+
+def _param_seed(seed: int, name: str) -> int:
+    """The seed of one parameter's generator: a function of the model's
+    seed and the parameter's name alone."""
+    return int(np.random.SeedSequence([seed, zlib.crc32(name.encode())]).generate_state(1)[0])
+
+
+def init_blocks(cfg: ModelConfig, seed: int, *, mesh=None, specs: dict | None = None,
+                device="cuda", max_positions: int = 4096) -> nn.Module:
+    """A model whose parameters are drawn one at a time, each from its own
+    generator (``_param_seed``) by its init law (``layers.draw``), on
+    ``device`` (with ``mesh``: the rank's device, and the rank keeps only
+    its block of each under ``specs``, each parameter's ``PartitionSpec``
+    on ``mesh`` as ``train_step.param_specs`` gives them).  The whole
+    parameter exists only while its block is cut, so a rank's peak is its
+    blocks plus the largest parameter; every mesh gets the blocks of the
+    same whole model."""
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.device import resolve_device
+
+    if (mesh is None) != (specs is None):
+        raise ValueError("init_blocks takes a mesh and the parameters' specs on it together")
+    model = M.abstract_params(cfg, max_positions=max_positions)
+    dev = resolve_device(device) if mesh is None else sh.local_device(mesh)
+    with torch.no_grad():
+        for name, meta in list(model.named_parameters()):
+            gen = torch.Generator(device=dev).manual_seed(_param_seed(seed, name))
+            full = L.draw(torch.empty(meta.shape, dtype=meta.dtype, device=dev), meta.init_law, gen)
+            block = full if specs is None else sh.shard_local(full, mesh, specs[name])
+            if block.untyped_storage().nbytes() > block.numel() * block.element_size():
+                block = block.clone()     # a view of the whole: keep its block only
+            path, _, leaf = name.rpartition(".")
+            owner = model.get_submodule(path) if path else model
+            param = nn.Parameter(block, requires_grad=False)
+            param.init_law = meta.init_law
+            owner._parameters[leaf] = param
+            del full, block
+    return model

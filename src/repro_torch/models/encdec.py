@@ -7,8 +7,12 @@ bidirectional (no mask, no rope, learned positions); the decoder is causal
 self-attention + cross-attention over the encoded memory, with the
 standard serve split: cross K/V are computed once at prefill and reused
 every decode step.  Layers run in order (``cfg.scan_layers`` has no
-effect); caches are one dict per decoder layer.  Under a training mesh each
-block gathers its weights where it runs (``sharding_ctx.gathered``).
+effect); caches are one dict per decoder layer.  Under a mesh each block
+gathers its weights where it runs (``sharding_ctx.gathered``); under a
+serve scope that splits "model", self- and cross-attention, the MLP, the
+embedding and the tied head compute on this rank's blocks
+(``models.layers``), and the caches are its blocks of the reference's
+layout (the cross K/V as ``cross_k``/``cross_v``).
 """
 from __future__ import annotations
 
@@ -65,10 +69,27 @@ def init_encdec_params(cfg: ModelConfig, *, generator: torch.Generator | None, d
     return EncDec(cfg, max_positions=max_positions, device=device, generator=generator)
 
 
+def _cross_dim(cfg: ModelConfig, batch: int) -> int | None:
+    """The dim of the cross K/V (B, encoder_len, KV, hd) split over "model"
+    under a serve scope: 2 (kv heads), 1 (frames) or None."""
+    return S.cache_dim("cross_k", (batch, cfg.encoder_len, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim))
+
+
+def _cross_block(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    """Cross K or V computed on this rank (its kv heads, or all of them) ->
+    the rank's block at rest: frames cut when they are split."""
+    return S.model_block(t, 1 if _cross_dim(cfg, t.shape[0]) == 1 else None)
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device) -> list:
     """Zero caches of prefill's layout: per decoder layer the self cache and
-    the cross K/V over ``encoder_len`` frames."""
-    cross = (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    the cross K/V over ``encoder_len`` frames (this rank's blocks under a
+    split)."""
+    cross = [batch, cfg.encoder_len, cfg.n_kv_heads, cfg.resolved_head_dim]
+    d = _cross_dim(cfg, batch)
+    if d is not None:
+        cross[d] //= S.model_split().size
     return [{"self": L.init_layer_cache(cfg, batch, capacity, dtype, device),
              "cross_k": torch.zeros(cross, dtype=dtype, device=device),
              "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
@@ -76,9 +97,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device) -> li
 
 
 def _head_logits(cfg: ModelConfig, params: EncDec, x: torch.Tensor) -> torch.Tensor:
-    logits = (x @ params.embed.T).float()
-    mask = L.vocab_pad_mask(cfg, x.device)
-    return logits if mask is None else logits + mask[None, None, :]
+    return L.head_logits(cfg, x, params.embed.T, S.split_of(params, "embed"))
 
 
 # ------------------------------------------------------------------ encoder
@@ -104,7 +123,7 @@ def _cross_kv(p_cross: L.Attention, memory: torch.Tensor):
 def _dec_block(cfg, p: DecBlock, x, *, self_mask, memory=None, cross_kv=None, cache=None,
                decode_pos=None):
     """One decoder block; cross K/V either fresh from ``memory`` (train /
-    prefill) or reused from ``cross_kv`` (decode)."""
+    prefill) or reused from ``cross_kv`` (decode: this rank's blocks)."""
     h, new_self = L.attention(
         cfg, p.self_attn, L.rms_norm(x, p.ln1, cfg),
         angles=None, mask=self_mask,
@@ -114,7 +133,8 @@ def _dec_block(cfg, p: DecBlock, x, *, self_mask, memory=None, cross_kv=None, ca
     x = x + h
     kv = cross_kv if cross_kv is not None else _cross_kv(p.cross_attn, memory)
     h, _ = L.attention(cfg, p.cross_attn, L.rms_norm(x, p.ln2, cfg),
-                       angles=None, mask=None, kv_override=kv)
+                       angles=None, mask=None, kv_override=kv,
+                       kv_slots_split=cross_kv is not None and _cross_dim(cfg, x.shape[0]) == 1)
     x = x + h
     x = x + L.mlp(cfg, p.mlp, L.rms_norm(x, p.ln3, cfg))
     return x, new_self, kv
@@ -145,37 +165,45 @@ def forward_train(cfg: ModelConfig, params: EncDec, frames, tokens, *, return_hi
 def prefill(cfg: ModelConfig, params: EncDec, frames, tokens, *, cache_capacity: int | None = None):
     """Encode + run the prompt through the decoder, building self caches and
     cross K/V.  Returns (last logits (B, V), caches)."""
-    memory = encode(cfg, params, frames)
-    b, s = tokens.shape
-    cap = cache_capacity or s
-    x = params.embed[tokens] + params.dec_pos[None, :s]
-    mask = L.causal_mask(s, device=x.device)
-    caches = []
-    for p in params.decoder:
-        x_out, _, kv = _dec_block(cfg, p, x, self_mask=mask, memory=memory)
-        # Self cache from this layer's normed input (as transformer._fill_cache),
-        # with the k/v biases that self-attention adds.  The reference leaves
-        # them out here (ROADMAP.md §3): for a config with qkv_bias its decode
-        # would disagree with its forward; whisper-small has none.
-        h = L.rms_norm(x, p.ln1, cfg)
-        cache = L.init_layer_cache(cfg, b, cap, x.dtype, x.device)
-        cache = L.fill_layer_cache(cache, *L.kv_proj(p.self_attn, h))
-        caches.append({"self": cache, "cross_k": kv[0], "cross_v": kv[1]})
-        x = x_out
-    x = L.rms_norm(x[:, -1:], params.final_norm, cfg)
-    return _head_logits(cfg, params, x)[:, 0], caches
+    with S.gathered(params, recurse=False):
+        memory = encode(cfg, params, frames)
+        b, s = tokens.shape
+        cap = cache_capacity or s
+        x = (L.embed_lookup(params.embed, tokens, S.split_of(params, "embed"))
+             + params.dec_pos[None, :s])
+        mask = L.causal_mask(s, device=x.device)
+        caches = []
+        for p in params.decoder:
+            with S.gathered(p):
+                x_out, _, kv = _dec_block(cfg, p, x, self_mask=mask, memory=memory)
+                # Self cache from this layer's normed input (as
+                # transformer._fill_cache), with the k/v biases that
+                # self-attention adds.  The reference leaves them out here
+                # (ROADMAP.md §3): for a config with qkv_bias its decode would
+                # disagree with its forward; whisper-small has none.
+                h = L.rms_norm(x, p.ln1, cfg)
+                cache = L.init_layer_cache(cfg, b, cap, x.dtype, x.device)
+                cache = L.fill_layer_cache(cache, *L.kv_proj(p.self_attn, h), cfg=cfg)
+            caches.append({"self": cache, "cross_k": _cross_block(cfg, kv[0]),
+                           "cross_v": _cross_block(cfg, kv[1])})
+            x = x_out
+        x = L.rms_norm(x[:, -1:], params.final_norm, cfg)
+        return _head_logits(cfg, params, x)[:, 0], caches
 
 
 def decode(cfg: ModelConfig, params: EncDec, token: torch.Tensor, pos: torch.Tensor, caches: list):
     """One decoder token against (self cache, cross K/V); the self caches
     are written in place."""
-    x = params.embed[token[:, None]] + params.dec_pos[pos][:, None]
-    new_caches = []
-    for p, cache in zip(params.decoder, caches):
-        x, new_self, _ = _dec_block(cfg, p, x, self_mask=None,
-                                    cross_kv=(cache["cross_k"], cache["cross_v"]),
-                                    cache=cache, decode_pos=pos)
-        new_caches.append({"self": new_self, "cross_k": cache["cross_k"],
-                           "cross_v": cache["cross_v"]})
-    x = L.rms_norm(x, params.final_norm, cfg)
-    return _head_logits(cfg, params, x)[:, 0], new_caches
+    with S.gathered(params, recurse=False):
+        x = (L.embed_lookup(params.embed, token[:, None], S.split_of(params, "embed"))
+             + params.dec_pos[pos][:, None])
+        new_caches = []
+        for p, cache in zip(params.decoder, caches):
+            with S.gathered(p):
+                x, new_self, _ = _dec_block(cfg, p, x, self_mask=None,
+                                            cross_kv=(cache["cross_k"], cache["cross_v"]),
+                                            cache=cache, decode_pos=pos)
+            new_caches.append({"self": new_self, "cross_k": cache["cross_k"],
+                               "cross_v": cache["cross_v"]})
+        x = L.rms_norm(x, params.final_norm, cfg)
+        return _head_logits(cfg, params, x)[:, 0], new_caches

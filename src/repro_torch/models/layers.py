@@ -21,33 +21,52 @@ from torch import nn
 from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding_ctx as S
+from repro_torch.runtime import sharding as sh
 
 NEG_INF = -2.0e38
 
 
 # ---------------------------------------------------------------- parameters
 
-def normal_param(shape, scale: float, *, dtype, device, generator) -> nn.Parameter:
-    """N(0, 1) * ``scale`` drawn from ``generator`` (on ``device``); with no
-    generator the storage is left unset (a ``meta`` model, or one whose
-    values are about to be copied in).  Parameters take no gradient until
-    the train step turns it on (``model.requires_grad_(True)``): serving
-    needs none."""
+def draw(t: torch.Tensor, law: tuple, generator) -> torch.Tensor:
+    """Fill ``t`` in place by an init law: ``("normal", scale)``,
+    ``("uniform", lo, hi)`` (from ``generator``) or ``("const", value)``."""
+    kind = law[0]
+    if kind == "normal":
+        return t.normal_(generator=generator).mul_(law[1])
+    if kind == "uniform":
+        return t.uniform_(law[1], law[2], generator=generator)
+    return t.fill_(law[1])
+
+
+def _param(shape, law: tuple, *, dtype, device, generator) -> nn.Parameter:
+    """A parameter drawn by ``law``; with no generator a random law leaves
+    the storage unset (a ``meta`` model, or one whose values are about to be
+    copied in).  The law stays on the parameter as ``init_law``, so one
+    rank's blocks can be drawn a parameter at a time
+    (``models.convert.init_blocks``).  Parameters take no gradient until the
+    train step turns it on (``model.requires_grad_(True)``): serving needs
+    none."""
     t = torch.empty(shape, dtype=dtype, device=device)
-    if generator is not None:
-        t.normal_(generator=generator).mul_(scale)
-    return nn.Parameter(t, requires_grad=False)
+    if law[0] == "const" or generator is not None:
+        draw(t, law, generator)
+    p = nn.Parameter(t, requires_grad=False)
+    p.init_law = law
+    return p
+
+
+def normal_param(shape, scale: float, *, dtype, device, generator) -> nn.Parameter:
+    """N(0, 1) * ``scale`` drawn from ``generator`` (on ``device``)."""
+    return _param(shape, ("normal", scale), dtype=dtype, device=device, generator=generator)
 
 
 def uniform_param(shape, lo: float, hi: float, *, dtype, device, generator) -> nn.Parameter:
-    t = torch.empty(shape, dtype=dtype, device=device)
-    if generator is not None:
-        t.uniform_(lo, hi, generator=generator)
-    return nn.Parameter(t, requires_grad=False)
+    return _param(shape, ("uniform", lo, hi), dtype=dtype, device=device, generator=generator)
 
 
 def const_param(shape, value: float, *, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device), requires_grad=False)
+    return _param(shape, ("const", value), dtype=dtype, device=device, generator=None)
 
 
 def norm_param(cfg: ModelConfig, device) -> nn.Parameter:
@@ -162,11 +181,41 @@ def decode_mask(q_pos: torch.Tensor, kv_positions: torch.Tensor, window: int | N
     return torch.where(ok, 0.0, NEG_INF).float()[:, None, :]
 
 
-def vocab_pad_mask(cfg: ModelConfig, device) -> torch.Tensor | None:
-    """Additive (V_pad,) mask: NEG_INF on the columns past ``cfg.vocab``."""
-    if cfg.padded_vocab == cfg.vocab:
+def vocab_pad_mask(cfg: ModelConfig, device, first: int = 0, n: int | None = None
+                   ) -> torch.Tensor | None:
+    """Additive mask of the vocab columns ``first .. first + n - 1`` (all
+    ``V_pad`` by default: a rank's block of them under a split): NEG_INF on
+    the columns past ``cfg.vocab``, None when there are none."""
+    n = cfg.padded_vocab if n is None else n
+    if first + n <= cfg.vocab:
         return None
-    return torch.where(torch.arange(cfg.padded_vocab, device=device) < cfg.vocab, 0.0, NEG_INF).float()
+    cols = torch.arange(first, first + n, device=device)
+    return torch.where(cols < cfg.vocab, 0.0, NEG_INF).float()
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, split: S.Split | None = None
+                 ) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table; with ``split`` (``sharding_ctx.
+    split_of`` the table) ``table`` is this rank's block of the vocab rows
+    and the lookup is vocab-parallel (``runtime.sharding.vocab_lookup``)."""
+    if split is None:
+        return table[ids]
+    return sh.vocab_lookup(table, ids, split.mesh)
+
+
+def head_logits(cfg: ModelConfig, hidden: torch.Tensor, head: torch.Tensor,
+                split: S.Split | None = None) -> torch.Tensor:
+    """hidden (B, C, d) by the head (d, V_pad) -> float32 logits, final
+    softcap, pad mask.  With ``split`` (``sharding_ctx.split_of`` the head)
+    ``head`` is this rank's block of the vocab columns, and so are the
+    logits (the mask at their global column indices)."""
+    logits = (hidden @ head).float()
+    logits = final_softcap(cfg, logits)
+    n = head.shape[-1]
+    mask = vocab_pad_mask(cfg, hidden.device, split.index * n if split is not None else 0, n)
+    if mask is not None:
+        logits = logits + mask[None, None, :]
+    return logits
 
 
 # ------------------------------------------------------------------ KV cache
@@ -200,64 +249,152 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
     return q.to(dtype) * s[..., None].to(dtype)
 
 
+class KVSplit(NamedTuple):
+    """How an attention cache of ``slots`` full slots lies over "model"
+    (``sharding_ctx.cache_dim``): k/v (and their int8 scales) on kv heads
+    (``kv == 2``), on slots (``kv == 1``) or whole (None), ``positions`` on
+    slots or whole, this rank being ``index`` of ``size``.  A slot's owner
+    is ``slot // (slots / size)``.  Outside a split everything is whole."""
+
+    slots: int
+    kv: int | None = None
+    positions: bool = False
+    size: int = 1
+    index: int = 0
+
+
+def kv_split(cfg: ModelConfig, batch: int, slots: int) -> KVSplit:
+    """The layout of a cache of ``slots`` full slots under the serve scope
+    (trivial outside a split)."""
+    split = S.model_split()
+    if split is None:
+        return KVSplit(slots)
+    kv = S.cache_dim("k", (batch, slots, cfg.n_kv_heads, cfg.resolved_head_dim))
+    return KVSplit(slots, kv, S.cache_dim("positions", (batch, slots)) == 1, split.size,
+                   split.index)
+
+
+def layer_split(cfg: ModelConfig, cache: LayerCache, window: int | None) -> KVSplit:
+    """The layout of a layer's cache: its own slots outside a split; under
+    one, the scope's capacity, or a local layer's ring of ``min(capacity,
+    window)``."""
+    split = S.model_split()
+    if split is None:
+        return KVSplit(cache.k.shape[1])
+    slots = split.capacity if window is None else min(split.capacity, window)
+    return kv_split(cfg, cache.k.shape[0], slots)
+
+
 def init_layer_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device) -> LayerCache:
-    kv = cfg.n_kv_heads
+    """An empty cache of ``capacity`` slots; under a serve scope that splits
+    "model", this rank's block of it (``kv_split``)."""
+    lay = kv_split(cfg, batch, capacity)
+    kv = cfg.n_kv_heads // (lay.size if lay.kv == 2 else 1)
+    t_kv = capacity // (lay.size if lay.kv == 1 else 1)
+    t_pos = capacity // (lay.size if lay.positions else 1)
     hd = cfg.resolved_head_dim
-    positions = torch.full((batch, capacity), -1, dtype=torch.int32, device=device)
+    positions = torch.full((batch, t_pos), -1, dtype=torch.int32, device=device)
     if cfg.kv_cache_dtype == "int8":
         return LayerCache(
-            k=torch.zeros((batch, capacity, kv, hd), dtype=torch.int8, device=device),
-            v=torch.zeros((batch, capacity, kv, hd), dtype=torch.int8, device=device),
+            k=torch.zeros((batch, t_kv, kv, hd), dtype=torch.int8, device=device),
+            v=torch.zeros((batch, t_kv, kv, hd), dtype=torch.int8, device=device),
             positions=positions,
-            k_scale=torch.zeros((batch, capacity, kv), dtype=torch.bfloat16, device=device),
-            v_scale=torch.zeros((batch, capacity, kv), dtype=torch.bfloat16, device=device),
+            k_scale=torch.zeros((batch, t_kv, kv), dtype=torch.bfloat16, device=device),
+            v_scale=torch.zeros((batch, t_kv, kv), dtype=torch.bfloat16, device=device),
         )
     return LayerCache(
-        k=torch.zeros((batch, capacity, kv, hd), dtype=dtype, device=device),
-        v=torch.zeros((batch, capacity, kv, hd), dtype=dtype, device=device),
+        k=torch.zeros((batch, t_kv, kv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, t_kv, kv, hd), dtype=dtype, device=device),
         positions=positions,
     )
 
 
-def cache_write(cache: LayerCache, index: tuple, k: torch.Tensor, v: torch.Tensor,
-                positions: torch.Tensor) -> LayerCache:
-    """Write k/v rows and their absolute positions at ``index`` (indices of
-    the cache's first two axes), in place, quantizing in int8 mode."""
-    cache.positions[index] = positions.to(torch.int32)
+def _kv_payload(cache: LayerCache, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """The k/v rows to store, by field: quantized with their scales in int8
+    mode."""
     if cache.k_scale is not None:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
-        cache.k[index] = kq
-        cache.v[index] = vq
-        cache.k_scale[index] = ks
-        cache.v_scale[index] = vs
-    else:
-        cache.k[index] = k
-        cache.v[index] = v
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k, "v": v}
+
+
+def _owned_runs(lo: int, hi: int, slots: int, first: int, last: int) -> list:
+    """Runs ``(a, b)`` of the positions ``lo .. hi - 1`` whose slot
+    (``position % slots``) lies in ``first .. last - 1``."""
+    runs = []
+    for lap in range(lo // slots, (hi - 1) // slots + 1):
+        a, b = max(lo, lap * slots + first), min(hi, lap * slots + last)
+        if a < b:
+            runs.append((a, b))
+    return runs
+
+
+def fill_layer_cache(cache: LayerCache, k: torch.Tensor, v: torch.Tensor, *, cfg: ModelConfig,
+                     window: int | None = None) -> LayerCache:
+    """Prefill: lay the last ``min(S, slots)`` positions of k/v (B, S, KV,
+    hd) into the (possibly ring) cache at ``position % slots``, in place.
+    Under a serve scope that splits the cache (``layer_split``; ``window``
+    names a local layer's ring) each field on slots takes only the
+    positions whose slots this rank's block holds: they are known on the
+    host, and their indices are built on the device (no host wait)."""
+    lay = layer_split(cfg, cache, window)
+    b, s = k.shape[:2]
+    take = min(s, lay.slots)
+    block = lay.slots // lay.size
+    dev = k.device
+
+    def own(on_slots: bool):
+        """(the positions a field's block holds, their slots in it)."""
+        if not on_slots:
+            pos = torch.arange(s - take, s, device=dev)
+            return pos, pos % lay.slots
+        first = lay.index * block
+        parts = [torch.arange(a, c, device=dev)
+                 for a, c in _owned_runs(s - take, s, lay.slots, first, first + block)]
+        pos = (parts[0] if len(parts) == 1 else torch.cat(parts) if parts
+               else torch.zeros(0, dtype=torch.long, device=dev))
+        return pos, pos % lay.slots - first
+
+    pos, slot = own(lay.positions)
+    cache.positions[:, slot] = pos.to(torch.int32)[None].expand(b, -1)
+    if lay.positions != (lay.kv == 1):
+        pos, slot = own(lay.kv == 1)
+    rows = pos if lay.kv == 1 else slice(s - take, s)
+    for name, t in _kv_payload(cache, k[:, rows], v[:, rows]).items():
+        getattr(cache, name)[:, slot] = t
     return cache
 
 
-def fill_layer_cache(cache: LayerCache, k: torch.Tensor, v: torch.Tensor) -> LayerCache:
-    """Prefill: lay the last ``min(S, capacity)`` positions of k/v (B, S, KV,
-    hd) into the (possibly ring) cache at ``position % capacity``."""
-    s = k.shape[1]
-    cap = cache.k.shape[1]
-    take = min(s, cap)
-    pos = torch.arange(s - take, s, dtype=torch.int32, device=k.device)
-    slots = (pos % cap).long()
-    return cache_write(cache, (slice(None), slots), k[:, s - take :], v[:, s - take :],
-                       pos[None, :].expand(k.shape[0], take))
-
-
-def cache_insert(cache: LayerCache, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor) -> LayerCache:
-    """Insert one decode step (k/v: (B, 1, KV, hd), pos: (B,)) at
-    ``pos % capacity`` — a ring for local layers, the exact slot for global
-    ones.  Unlike the reference, which returns a new cache, this writes the
-    cache's tensors in place and returns the same cache."""
-    cap = cache.k.shape[1]
-    slot = (pos % cap).long()
+def cache_insert(cache: LayerCache, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                 lay: KVSplit | None = None) -> LayerCache:
+    """Insert one decode step (k/v: (B, 1, KV, hd), pos: (B,)) at ``pos %
+    slots`` — a ring for local layers, the exact slot for global ones.
+    Under a split (``lay``: ``layer_split``) a field on slots is written
+    only in the rows whose slot this rank owns (the others keep their
+    values: no host wait on which rows those are).  Unlike the reference,
+    which returns a new cache, this writes the cache's tensors in place and
+    returns the same cache."""
+    lay = lay or KVSplit(cache.k.shape[1])
+    slot = (pos % lay.slots).long()
     b = torch.arange(cache.k.shape[0], device=pos.device)
-    return cache_write(cache, (b, slot), k[:, 0], v[:, 0], pos)
+    mine = local = None
+    if lay.positions or lay.kv == 1:
+        block = lay.slots // lay.size
+        mine = slot // block == lay.index
+        local = torch.clamp(slot - lay.index * block, 0, block - 1)
+
+    def put(t: torch.Tensor, rows: torch.Tensor, on_slots: bool):
+        if not on_slots:
+            t[b, slot] = rows
+            return
+        keep = mine.view(-1, *([1] * (rows.dim() - 1)))
+        t[b, local] = torch.where(keep, rows, t[b, local])
+
+    put(cache.positions, pos.to(torch.int32), lay.positions)
+    for name, rows in _kv_payload(cache, k[:, 0], v[:, 0]).items():
+        put(getattr(cache, name), rows, lay.kv == 1)
+    return cache
 
 
 def cache_kv_values(cache: LayerCache, dtype) -> tuple[torch.Tensor, torch.Tensor]:
@@ -362,6 +499,71 @@ def _chunked_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd).to(qg.dtype)
 
 
+def _scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor | None
+            ) -> torch.Tensor:
+    """q (B, S, H, hd) against every slot of k (B, T, KV, hd) -> float32
+    logits (B, KV, G, S, T), scaled, softcapped, plus the additive mask (S,
+    T) or (B, 1, T) (decode)."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, hd)
+    kt = k.permute(0, 2, 3, 1)                                   # (B, KV, hd, T)
+    logits = (_heads_first(qg) @ kt).view(b, kvh, h // kvh, s, t).float() * hd ** -0.5
+    logits = _softcap(logits, cfg.attn_softcap)
+    if mask is not None:
+        if mask.dim() == 2:                       # (S, T)
+            logits = logits + mask[None, None, None, :, :]
+        else:                                     # (B, 1, T) decode
+            logits = logits + mask[:, None, None, :, :]
+    return logits
+
+
+def _dense_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor | None) -> torch.Tensor:
+    """Softmax attention over every slot of k/v: q (B, S, H, hd), k/v (B, T,
+    KV, hd), an additive mask (``_scores``) -> context (B, S, H, hd)."""
+    b, s, h, hd = q.shape
+    logits = _scores(cfg, q, k, mask)
+    _, kvh, group, _, t = logits.shape
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    ctx = probs.view(b, kvh, group * s, t) @ v.transpose(1, 2)   # (B, KV, G*S, hd)
+    return ctx.view(b, kvh, group, s, hd).permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
+
+
+def _partial_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: torch.Tensor | None, split) -> torch.Tensor:
+    """Attention of every head over slots split over "model", this rank
+    holding ``k``/``v`` (B, T_local, KV, hd) of its slots: the partial max,
+    denominator and weighted sum over its slots, combined over "model"
+    (flash-decoding: the partial-softmax reductions GSPMD inserts).  q (B, S,
+    H, hd) holds every head; ``mask`` (B, 1, T_local) is additive.  A rank
+    whose slots are all masked adds exp(NEG_INF - max) = 0."""
+    b, s, h, hd = q.shape
+    logits = _scores(cfg, q, k, mask)
+    _, kvh, group, _, t = logits.shape
+    m = sh.tp_max(torch.amax(logits, dim=-1), split.mesh)                 # (B, KV, G, S)
+    p = torch.exp(logits - m[..., None])
+    pv = (p.to(v.dtype).view(b, kvh, group * s, t) @ v.transpose(1, 2)).view(b, kvh, group, s, hd)
+    both = sh.tp_sum(torch.cat([pv.float(), torch.sum(p, dim=-1)[..., None]], dim=-1), split.mesh)
+    out = both[..., :hd] / torch.clamp_min(both[..., hd:], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+def _kv_for_heads(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, first: int, n: int):
+    """From k/v of every kv head, each of q heads ``first .. first + n -
+    1``'s kv head (a q head per kv head)."""
+    kv_of_q = torch.arange(first, first + n, device=k.device) // (cfg.n_heads // cfg.n_kv_heads)
+    return k.index_select(2, kv_of_q), v.index_select(2, kv_of_q)
+
+
+def _out_proj(p: "Attention", ctx: torch.Tensor) -> torch.Tensor:
+    """``wo`` on the context; a ``wo`` split on heads over "model" is
+    row-parallel, so its partial outputs are summed over "model"."""
+    out = proj_out(ctx, p.wo)
+    split = S.split_of(p, "wo")
+    return out if split is None else sh.tp_sum(out, split.mesh)
+
+
 def attention(
     cfg: ModelConfig,
     p: Attention,
@@ -374,9 +576,16 @@ def attention(
     window: int | None = None,
     kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attention
     causal: bool = True,
+    kv_slots_split: bool = False,           # kv_override holds this rank's slots only
 ) -> tuple[torch.Tensor, LayerCache | None]:
+    """Self- or cross-attention.  Under a serve scope that splits "model"
+    (``sharding_ctx.split_of``) this rank computes its block of the q heads
+    where ``wq``/``bq``/``wo`` are split, with its kv heads where
+    ``wk``/``wv``/``bk``/``bv`` are split too (each q head's kv head picked
+    out where they are whole), and ``wo``'s outputs are summed over
+    "model".  K/V split on slots (a decode cache, or ``kv_slots_split``
+    cross K/V): flash-decoding over every head, then this rank's heads."""
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
     q = proj_in(x, p.wq)
     if p.bq is not None:
@@ -387,35 +596,35 @@ def attention(
         if kv_override is None:
             k = apply_rope(k, angles)
 
+    heads = S.split_of(p, "wq")
+    on_slots = kv_slots_split
     new_cache = None
     if cache is not None:
-        new_cache = cache_insert(cache, k, v, decode_pos)
+        lay = layer_split(cfg, cache, window)
+        new_cache = cache_insert(cache, k, v, decode_pos, lay)
         k, v = cache_kv_values(new_cache, x.dtype)  # (B, T, KV, hd)
-        mask = decode_mask(decode_pos, new_cache.positions, window)
-
-    group = h // kvh
-    qg = q.reshape(b, s, kvh, group, hd)
+        on_slots = lay.kv == 1
+        positions = new_cache.positions
+        if lay.positions and not on_slots:
+            positions = S.model_whole(positions, 1)   # every slot's k/v is on this rank
+        mask = decode_mask(decode_pos, positions, window)
+    if on_slots:
+        ctx = _partial_attention(cfg, S.model_whole(q, 2 if heads else None), k, v, mask,
+                                 S.model_split())
+        if heads is not None:
+            ctx = ctx.narrow(2, heads.index * q.shape[2], q.shape[2])
+        return _out_proj(p, ctx), new_cache
+    if heads is not None and S.split_of(p, "wk") is None:
+        k, v = _kv_for_heads(cfg, k, v, heads.index * q.shape[2], q.shape[2])
 
     # Flash-style path: full-sequence attention (train/prefill/encoder) with
     # chunking enabled; decode and cross-attention keep the dense path.
     if cfg.attn_chunk and cache is None and s > 1 and kv_override is None:
-        ctx = _chunked_attention(cfg, qg, k, v, causal=causal, window=window)
-        return proj_out(ctx, p.wo), None
-
-    t = k.shape[1]
-    scale = hd ** -0.5
-    kt = k.permute(0, 2, 3, 1)                                   # (B, KV, hd, T)
-    logits = (_heads_first(qg) @ kt).view(b, kvh, group, s, t).float() * scale
-    logits = _softcap(logits, cfg.attn_softcap)
-    if mask is not None:
-        if mask.dim() == 2:                       # (S, T)
-            logits = logits + mask[None, None, None, :, :]
-        else:                                     # (B, 1, T) decode
-            logits = logits + mask[:, None, None, :, :]
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    ctx = probs.view(b, kvh, group * s, t) @ v.transpose(1, 2)   # (B, KV, G*S, hd)
-    ctx = ctx.view(b, kvh, group, s, hd).permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
-    return proj_out(ctx, p.wo), new_cache
+        h, kvh, hd = q.shape[2], k.shape[2], q.shape[3]
+        ctx = _chunked_attention(cfg, q.reshape(b, s, kvh, h // kvh, hd), k, v, causal=causal,
+                                 window=window)
+        return _out_proj(p, ctx), None
+    return _out_proj(p, _dense_attention(cfg, q, k, v, mask)), new_cache
 
 
 # ----------------------------------------------------------------------- mlp
@@ -445,7 +654,12 @@ def mlp(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
         gated = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(cfg.activation)
-    return gated @ p.w_out
+    out = gated @ p.w_out
+    split = S.split_of(p, "w_out")
+    if split is not None:
+        # w_in and w_gate by columns, w_out by rows: one sum over "model"
+        out = sh.tp_sum(out, split.mesh)
+    return out
 
 
 # ------------------------------------------------------------------- softcap

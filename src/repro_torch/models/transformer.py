@@ -15,6 +15,13 @@ Three execution modes share the block code:
     prefill — full sequence, returns caches (serve step 1)
     decode  — S=1 against caches (serve step N); attention caches are
               written in place
+
+Under a serve scope that splits "model" (``sharding_ctx.model_split``)
+every cache is this rank's block of the reference's layout: attention
+caches as ``layers.init_layer_cache`` lays them out, recurrent states on
+"state"/heads.  The rg-lru and rwkv mixes still compute on their whole
+weights, so a layer's state is gathered whole before its step and cut back
+to the rank's block after it.
 """
 from __future__ import annotations
 
@@ -101,23 +108,44 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None, device) 
 
 # ------------------------------------------------------------------- caches
 
+def _init_state(cfg: ModelConfig, kind: str, batch: int, dtype, device) -> dict:
+    """A recurrent layer's whole zero state."""
+    if kind == "rwkv":
+        from repro_torch.models.rwkv6 import init_rwkv_cache
+
+        return init_rwkv_cache(cfg, batch, dtype, device)
+    from repro_torch.models.rglru import init_rglru_cache
+
+    return init_rglru_cache(cfg, batch, dtype, device)
+
+
+def state_blocks(state: dict) -> dict:
+    """A recurrent state (whole) -> this rank's block of each tensor under a
+    serve scope that splits "model" (``sharding_ctx.cache_dim``)."""
+    return {name: S.model_block(t, S.cache_dim(name, tuple(t.shape)))
+            for name, t in state.items()}
+
+
+def _whole_state(cfg: ModelConfig, kind: str, state: dict) -> dict:
+    """This rank's blocks of a recurrent state -> the whole state (each
+    tensor gathered over "model" on its split dim)."""
+    full = _init_state(cfg, kind, next(iter(state.values())).shape[0], None, "meta")
+    return {name: S.model_whole(t, S.cache_dim(name, tuple(full[name].shape)))
+            for name, t in state.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device) -> list:
     """One cache per layer, in layer order.  Local layers keep a ring of
-    ``min(capacity, local_window)`` slots."""
+    ``min(capacity, local_window)`` slots.  Under a serve scope that splits
+    "model", each is this rank's block."""
 
     def one(kind: str):
         if kind == "attn":
             return L.init_layer_cache(cfg, batch, capacity, dtype, device)
         if kind == "local":
             return L.init_layer_cache(cfg, batch, min(capacity, cfg.local_window), dtype, device)
-        if kind == "rwkv":
-            from repro_torch.models.rwkv6 import init_rwkv_cache
-
-            return init_rwkv_cache(cfg, batch, dtype, device)
-        if kind == "rec":
-            from repro_torch.models.rglru import init_rglru_cache
-
-            return init_rglru_cache(cfg, batch, dtype, device)
+        if kind in ("rwkv", "rec"):
+            return state_blocks(_init_state(cfg, kind, batch, dtype, device))
         raise ValueError(kind)
 
     return [one(kind) for kind in _layer_kinds(cfg)]
@@ -138,7 +166,7 @@ def _block(cfg: ModelConfig, p: Block, x: torch.Tensor, *, angles, mask, cache, 
             cache=cache if mode == "decode" else None, decode_pos=decode_pos, window=window,
         )
         if mode == "prefill":
-            new_cache = _fill_cache(cfg, cache, p, h, angles)
+            new_cache = _fill_cache(cfg, cache, p, h, angles, window)
         if cfg.post_norms:
             out = L.rms_norm(out, p.pn1, cfg)
         x = x + out
@@ -157,32 +185,37 @@ def _block(cfg: ModelConfig, p: Block, x: torch.Tensor, *, angles, mask, cache, 
         if cfg.post_norms:
             ff = L.rms_norm(ff, p.pn2, cfg)
         return x + ff, new_cache, aux
+    # decode continues the carried state; train/prefill start fresh (the
+    # returned cache is the final state, which prefill keeps)
+    state = cache if mode == "decode" else None
+    split = S.model_split() is not None
+    if split and state is not None:
+        state = _whole_state(cfg, kind, state)
     if kind == "rwkv":
         from repro_torch.models.rwkv6 import rwkv_block
 
-        # decode continues the carried state; train/prefill start fresh (the
-        # returned cache is the final state, which prefill keeps).
-        x, new_cache = rwkv_block(cfg, p.rwkv, p.ln1, p.ln2, x,
-                                  cache if mode == "decode" else None)
-        return x, new_cache, None
-    if kind == "rec":
+        x, new_cache = rwkv_block(cfg, p.rwkv, p.ln1, p.ln2, x, state)
+    elif kind == "rec":
         from repro_torch.models.rglru import rglru_mix
 
         h = L.rms_norm(x, p.ln1, cfg)
-        out, new_cache = rglru_mix(cfg, p.rec, h, cache if mode == "decode" else None)
+        out, new_cache = rglru_mix(cfg, p.rec, h, state)
         x = x + out
         x = x + L.mlp(cfg, p.mlp, L.rms_norm(x, p.ln2, cfg))
-        return x, new_cache, None
-    raise ValueError(kind)
+    else:
+        raise ValueError(kind)
+    if split and mode != "train":
+        new_cache = state_blocks(new_cache)
+    return x, new_cache, None
 
 
-def _fill_cache(cfg, cache: L.LayerCache, p: Block, h_normed, angles) -> L.LayerCache:
+def _fill_cache(cfg, cache: L.LayerCache, p: Block, h_normed, angles, window) -> L.LayerCache:
     """Prefill: recompute k/v for the full sequence and lay them into the
     (possibly ring) cache with absolute positions."""
     k, v = L.kv_proj(p.attn, h_normed)
     if angles is not None:
         k = L.apply_rope(k, angles)
-    return L.fill_layer_cache(cache, k, v)
+    return L.fill_layer_cache(cache, k, v, cfg=cfg, window=window)
 
 
 # ------------------------------------------------------------------ forward
@@ -192,7 +225,7 @@ def _embed_inputs(cfg, params: Transformer, tokens, extra_embeds):
     if extra_embeds is not None:
         parts.append(extra_embeds.to(params.embed.dtype))
     if tokens is not None:
-        parts.append(params.embed[tokens])
+        parts.append(L.embed_lookup(params.embed, tokens, S.split_of(params, "embed")))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype before the product
@@ -202,14 +235,10 @@ def _embed_inputs(cfg, params: Transformer, tokens, extra_embeds):
 
 def apply_head(cfg: ModelConfig, params: Transformer, hidden: torch.Tensor) -> torch.Tensor:
     """Final-normed hidden (B, C, d) -> logits (B, C, V_pad), float32,
-    softcapped, pad-masked."""
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = (hidden @ head).float()
-    logits = L.final_softcap(cfg, logits)
-    mask = L.vocab_pad_mask(cfg, hidden.device)
-    if mask is not None:
-        logits = logits + mask[None, None, :]
-    return logits
+    softcapped, pad-masked (this rank's vocab columns under a split)."""
+    if cfg.tie_embeddings:
+        return L.head_logits(cfg, hidden, params.embed.T, S.split_of(params, "embed"))
+    return L.head_logits(cfg, hidden, params.lm_head, S.split_of(params, "lm_head"))
 
 
 def _logits(cfg, params: Transformer, x):
@@ -298,15 +327,17 @@ def forward_train(cfg: ModelConfig, params: Transformer, tokens, positions, *,
 def prefill(cfg: ModelConfig, params: Transformer, tokens, positions, *,
             cache_capacity: int | None = None, extra_embeds=None):
     """Serve step 1: full forward building caches.  Returns (last-token
-    logits (B,V), caches)."""
-    x = _embed_inputs(cfg, params, tokens, extra_embeds)
-    b, s = x.shape[0], x.shape[1]
-    caches = init_cache(cfg, b, cache_capacity or s, x.dtype, x.device)
-    angles = L.rope_angles(cfg, positions) if cfg.rope_theta else None
-    masks = _train_masks(cfg, s, x.device)
-    x, caches, _ = _run_stacks(cfg, params, x, angles=angles, masks=masks, caches=caches,
-                               decode_pos=None, mode="prefill")
-    logits = _logits(cfg, params, x[:, -1:])
+    logits (B,V), caches).  Under a mesh the embedding, final norm and head
+    are gathered for the whole call."""
+    with S.gathered(params, recurse=False):
+        x = _embed_inputs(cfg, params, tokens, extra_embeds)
+        b, s = x.shape[0], x.shape[1]
+        caches = init_cache(cfg, b, cache_capacity or s, x.dtype, x.device)
+        angles = L.rope_angles(cfg, positions) if cfg.rope_theta else None
+        masks = _train_masks(cfg, s, x.device)
+        x, caches, _ = _run_stacks(cfg, params, x, angles=angles, masks=masks, caches=caches,
+                                   decode_pos=None, mode="prefill")
+        logits = _logits(cfg, params, x[:, -1:])
     return logits[:, 0], caches
 
 
@@ -315,9 +346,10 @@ def decode(cfg: ModelConfig, params: Transformer, token: torch.Tensor, pos: torc
     """Serve step N: one token (B,) at absolute positions ``pos`` (B,)
     through the caches -> (logits (B,V), caches).  Attention caches are
     written in place; recurrent states come back as new tensors."""
-    x = _embed_inputs(cfg, params, token[:, None], None)
-    angles = L.rope_angles(cfg, pos[:, None]) if cfg.rope_theta else None
-    x, caches, _ = _run_stacks(cfg, params, x, angles=angles, masks=None, caches=caches,
-                               decode_pos=pos, mode="decode")
-    logits = _logits(cfg, params, x)
+    with S.gathered(params, recurse=False):
+        x = _embed_inputs(cfg, params, token[:, None], None)
+        angles = L.rope_angles(cfg, pos[:, None]) if cfg.rope_theta else None
+        x, caches, _ = _run_stacks(cfg, params, x, angles=angles, masks=None, caches=caches,
+                                   decode_pos=pos, mode="decode")
+        logits = _logits(cfg, params, x)
     return logits[:, 0], caches

@@ -24,6 +24,13 @@ the same sum), and for work split over "model" inside one data row
 ``sum_parts`` (forward sum, backward identity) and ``sum_grads`` (forward
 identity, backward sum).
 
+The LM serve steps split attention, the MLP, the embedding and the head
+over "model" and run under ``torch.inference_mode()``, through collectives
+that never reach autograd: ``gather_block`` (a parameter's value over the
+axes it is not kept local on), ``tp_sum`` (the sum of row-parallel
+partials), ``tp_max`` (the max of a partial softmax) and ``vocab_lookup``
+(an embedding lookup on vocab blocks).  Each skips an axis of size 1.
+
 LM parameters use MaxText-style *logical* axes mapped to physical axes by
 ``LogicalAxisRules``.
 """
@@ -56,7 +63,12 @@ __all__ = [
     "sum_over",
     "axis_rows",
     "axis_index",
+    "spec_dim",
     "gather_param",
+    "gather_block",
+    "tp_sum",
+    "tp_max",
+    "vocab_lookup",
     "psum",
     "sum_parts",
     "sum_grads",
@@ -67,8 +79,8 @@ __all__ = [
     "collective_bytes",
 ]
 
-# Bytes this rank received through the step's all-gathers and
-# reduce-scatters so far (setup broadcasts excluded); reset it by assignment.
+# Bytes this rank received through the step's all-gathers, reduce-scatters
+# and all-reduces so far (setup broadcasts excluded); reset it by assignment.
 collective_bytes = 0
 
 
@@ -256,6 +268,11 @@ def _names(entry) -> tuple[str, ...]:
     return tuple(entry)
 
 
+def spec_dim(spec, axis: str) -> int | None:
+    """The dim of ``spec`` split over mesh axis ``axis`` (None: no dim is)."""
+    return next((d for d, entry in enumerate(spec) if axis in _names(entry)), None)
+
+
 def axis_size(mesh, names) -> int:
     """Number of shards over one spec entry (the product of its axes)."""
     dims = mesh_axes(mesh)
@@ -394,12 +411,7 @@ class _GatherParam(torch.autograd.Function):
     @staticmethod
     def forward(ctx, block, mesh, spec, keep):
         ctx.mesh, ctx.spec, ctx.keep = mesh, spec, keep
-        out = block
-        for dim, entry in enumerate(spec):
-            for name in reversed(_names(entry)):
-                if name not in keep:
-                    out = _gather_cat(out, mesh, name, dim)
-        return out
+        return gather_block(block, mesh, spec, keep)
 
     @staticmethod
     def backward(ctx, grad):
@@ -431,6 +443,60 @@ def gather_param(block: torch.Tensor, mesh, spec, keep: tuple[str, ...] = ()) ->
     if all(int(s) == 1 for s in mesh.shape):
         return block
     return _GatherParam.apply(block, mesh, PartitionSpec(*spec), tuple(keep))
+
+
+# ------------------------------------------------ inference collectives (LM)
+
+
+def gather_block(block: torch.Tensor, mesh, spec, keep: tuple[str, ...] = ()) -> torch.Tensor:
+    """A parameter's value over every axis of its ``spec`` but the ``keep``
+    axes, from this rank's ``block``; no autograd."""
+    out = block
+    for dim, entry in enumerate(spec):
+        for name in reversed(_names(entry)):
+            if name not in keep:
+                out = _gather_cat(out, mesh, name, dim)
+    return out
+
+
+def _reduce(x: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
+    global collective_bytes
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    out = x if x.is_contiguous() else x.contiguous()
+    dist.all_reduce(out, op=op, group=mesh.get_group(axis))
+    collective_bytes += 2 * (n - 1) * out.numel() * out.element_size() // n
+    return out
+
+
+def tp_sum(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """The sum of every rank's partial ``x`` over one mesh axis (an
+    ``all_reduce``; the same bits on every rank).  ``x`` is consumed: a
+    contiguous ``x`` is reduced in place."""
+    return _reduce(x, mesh, axis, dist.ReduceOp.SUM)
+
+
+def tp_max(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """The elementwise max of every rank's ``x`` over one mesh axis
+    (consumed as in ``tp_sum``)."""
+    return _reduce(x, mesh, axis, dist.ReduceOp.MAX)
+
+
+def vocab_lookup(block: torch.Tensor, ids: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """Rows ``ids`` of an embedding table whose vocab rows are split over
+    ``axis``, ``block`` being this rank's: each rank looks up the ids of its
+    block (the others give zeros) and the ranks' rows are summed, so every
+    row is exactly its table row."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return block[ids]
+    rows = block.shape[0]
+    local = ids - axis_index(mesh, axis) * rows
+    mine = (local >= 0) & (local < rows)
+    got = block[torch.clamp(local, 0, rows - 1)]
+    return tp_sum(torch.where(mine[..., None], got, torch.zeros((), dtype=got.dtype,
+                                                                 device=got.device)), mesh, axis)
 
 
 class _Sum(torch.autograd.Function):

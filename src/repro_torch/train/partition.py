@@ -19,7 +19,8 @@ from __future__ import annotations
 from repro_torch.runtime.sharding import (DEFAULT_RULES, LogicalAxisRules, NamedSharding,
                                           PartitionSpec as P, axis_size, mesh_axes)
 
-__all__ = ["param_logical_axes", "tree_shardings", "cache_logical_axes", "divisible_sharding"]
+__all__ = ["param_logical_axes", "tree_shardings", "cache_logical_axes", "cache_specs",
+           "divisible_sharding"]
 
 # leaf-name -> logical axes, keyed by (name, rank).
 _PARAM_TABLE: dict[tuple[str, int], tuple] = {
@@ -133,6 +134,17 @@ def cache_logical_axes(caches):
         return infer(name, node)
 
     return walk(caches)
+
+
+def cache_specs(caches, mesh, rules: LogicalAxisRules = DEFAULT_RULES):
+    """The ``PartitionSpec`` of every cache tensor of ``caches`` (whole, or
+    abstract) on ``mesh``, in the caches' own structure: each tensor's
+    ``cache_logical_axes`` resolved against its shape (the reference's
+    ``tree_shardings(cache_logical_axes(caches), ..., abstract_tree=)``)."""
+    from repro_torch.models.convert import map_caches
+
+    return map_caches(lambda t, axes: _resolve(axes, tuple(t.shape), mesh, rules), caches,
+                      cache_logical_axes(caches))
 
 
 def divisible_sharding(mesh, spec, shape: tuple[int, ...]) -> NamedSharding:

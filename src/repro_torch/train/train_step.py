@@ -44,8 +44,8 @@ from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_init, adam
                                          decay_mask, global_norm_on_mesh)
 
 __all__ = ["TrainStepConfig", "softmax_xent", "loss_and_grads", "build_train_step",
-           "init_train_state", "batch_shardings", "param_axes_for", "param_specs", "mesh_scope",
-           "to_blocks"]
+           "init_train_state", "batch_shardings", "batch_rows", "param_axes_for", "param_specs",
+           "kept_local", "mesh_scope", "to_blocks"]
 
 _POLICIES = {
     "none": None,
@@ -156,7 +156,7 @@ def param_specs(cfg: ModelConfig, mesh) -> dict:
             partition.tree_shardings(logical, mesh, sh.DEFAULT_RULES, shapes=shapes).items()}
 
 
-def _kept_local(cfg: ModelConfig, mesh, specs: dict) -> dict:
+def kept_local(cfg: ModelConfig, mesh, specs: dict) -> dict:
     """The manual MoE's expert weights stay local over "model" (each rank
     computes its own experts); every other weight is gathered whole."""
     if cfg.moe is None or cfg.moe_impl != "manual" or cfg.moe.n_experts % sh.axis_size(mesh, "model"):
@@ -186,22 +186,27 @@ def batch_shardings(specs: dict, mesh) -> dict:
     return {k: shard(k, _shape(v)) for k, v in specs.items()}
 
 
-@contextlib.contextmanager
-def mesh_scope(cfg: ModelConfig, model, batch: dict, mesh):
-    """Installs ``mesh`` for layer code with ``model``'s parameters as this
-    rank's blocks, and yields this rank's block of ``batch``'s rows on its
-    device (the batch scope names the axes the rows were split over: none
-    when the batch dim does not divide)."""
-    specs = param_specs(cfg, mesh)
+def batch_rows(batch: dict, mesh) -> tuple[dict, tuple[str, ...]]:
+    """This rank's block of ``batch``'s rows on its device, and the axes
+    the rows were split over (none when the batch dim does not divide)."""
     shardings = batch_shardings(batch, mesh)
     axes: tuple[str, ...] = ()
     for ns in shardings.values():
         for entry in ns.spec:
             if entry is not None:
                 axes = (entry,) if isinstance(entry, str) else tuple(entry)
-    rows = {k: sh.shard_local(torch.as_tensor(v), mesh, shardings[k].spec)
-            for k, v in batch.items()}
-    layout = S.ParamLayout(mesh, model, specs, _kept_local(cfg, mesh, specs))
+    return {k: sh.shard_local(torch.as_tensor(v), mesh, shardings[k].spec)
+            for k, v in batch.items()}, axes
+
+
+@contextlib.contextmanager
+def mesh_scope(cfg: ModelConfig, model, batch: dict, mesh):
+    """Installs ``mesh`` for layer code with ``model``'s parameters as this
+    rank's blocks, and yields this rank's block of ``batch``'s rows on its
+    device (the batch scope names the axes the rows were split over)."""
+    specs = param_specs(cfg, mesh)
+    rows, axes = batch_rows(batch, mesh)
+    layout = S.ParamLayout(mesh, model, specs, kept_local(cfg, mesh, specs))
     with S.activation_sharding_scope(mesh, layout=layout, batch_axes=axes):
         yield rows
 

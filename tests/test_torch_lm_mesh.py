@@ -43,7 +43,7 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.models import api as M  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import sharding_ctx as S  # noqa: E402
-from repro_torch.train import make_batch  # noqa: E402
+from repro_torch.train import build_decode_step, build_prefill_step, make_batch  # noqa: E402
 from repro_torch.train.train_step import (TrainStepConfig, build_train_step,  # noqa: E402
                                           init_train_state, loss_and_grads)
 
@@ -204,17 +204,13 @@ _RANK = textwrap.dedent(
     record("production", production)
 
     def refusals():
+        # both serve steps build on the training mesh: each step's name ->
+        # whether it built (tests/test_torch_lm_serve_mesh.py runs the arms)
         mesh = meshes[(2, 2)]
         cfg = case_config(CASES["gemma2"])
         shape = ShapeConfig("serve", 16, 4, "prefill")
-        out = {}
-        for nm, build in (("prefill", build_prefill_step), ("decode", build_decode_step)):
-            try:
-                build(cfg, shape, mesh=mesh)
-                out[nm] = None
-            except NotImplementedError as e:
-                out[nm] = str(e)
-        return out
+        return {nm: callable(build(cfg, shape, mesh=mesh))
+                for nm, build in (("prefill", build_prefill_step), ("decode", build_decode_step))}
     record("refusals", refusals)
 
     def train_cli():
@@ -497,12 +493,17 @@ def test_blocks_hold_their_own_storage():
 
 def test_production_mesh_and_refusals(world):
     """``make_production_mesh`` on a world of 4: FSDP over "data"; the serve
-    steps refuse a mesh; anything but a ``DeviceMesh`` is a ``TypeError``."""
+    steps accept a ``DeviceMesh``; anything but a ``DeviceMesh`` is a
+    ``TypeError``."""
     prod = _result(world, "production")
     assert prod["pod"] == ((4, 1), "data=4xmodel=1")
     assert prod["multipod"] == ((2, 2, 1), "pod=2xdata=2xmodel=1")
     refusals = _result(world, "refusals")
-    assert all("serve steps" in v for v in refusals.values()), refusals
+    assert refusals == {"prefill": True, "decode": True}, refusals
+    for build in (build_prefill_step, build_decode_step):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            build(case_config(CASES["gemma2"]), ShapeConfig("serve", 16, 4, "prefill"),
+                  mesh=object())
     cfg = case_config(CASES["gemma2"])
     with pytest.raises(TypeError, match="DeviceMesh"):
         build_train_step(cfg, mesh=object())

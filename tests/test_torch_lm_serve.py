@@ -357,22 +357,48 @@ def test_serve_steps_match_reference(arch):
 
 
 def test_a_mesh_is_refused():
-    """The serve steps' mesh arms are not ported: a mesh raises, it is not
-    ignored.  The scope takes only a ``DeviceMesh`` (the training mesh,
-    ``tests/test_torch_lm_mesh.py``)."""
-    cfg = PC.get_config("gemma2-9b").reduced()
+    """Both serve steps accept a ``DeviceMesh``: on a gloo world of one
+    (started in this process) the mesh arms' prefill and two decode steps
+    equal ``mesh=None`` bit for bit.  Anything else as a mesh is a
+    ``TypeError``; ``constrain`` stays the identity.  The gloo world of 4
+    is ``tests/test_torch_lm_serve_mesh.py``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _, cfg = _cfgs("gemma2-9b")
     shape = PC.ShapeConfig("serve", seq_len=CAP, global_batch=B, kind="prefill")
-    mesh = object()
     for build in (PS.build_prefill_step, PS.build_decode_step):
-        with pytest.raises(NotImplementedError, match="LM mesh"):
-            build(cfg, shape, mesh=mesh)
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            build(cfg, shape, mesh=object())
     with pytest.raises(TypeError, match="DeviceMesh"):
-        with sharding_ctx.activation_sharding_scope(mesh):
+        with sharding_ctx.activation_sharding_scope(object()):
             pass
     with sharding_ctx.activation_sharding_scope(None):
         x = torch.ones(2, 3)
         assert sharding_ctx.constrain(x, ("batch", "embed")) is x
         assert sharding_ctx.current_mesh() is None
+
+    batch = make_batch(cfg, PC.ShapeConfig("p", S, B, "prefill"), 0, seed=2026)
+    batch.pop("labels")
+    model = PM.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        runs = []
+        for m in (None, mesh):
+            logits, caches = PS.build_prefill_step(cfg, shape, mesh=m)(model, batch)
+            out = [logits]
+            decode = PS.build_decode_step(cfg, shape, mesh=m)
+            for i in range(2):
+                logits, caches = decode(model, np.full((B,), 7 + i, np.int32),
+                                        np.full((B,), S + i, np.int32), caches)
+                out.append(logits)
+            runs.append(out + jax.tree.leaves(convert.caches_to_numpy(cfg, caches)))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(*runs):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
 # ----------------------------------------------------------------- convert
