@@ -176,6 +176,24 @@ Phases, each printing one JSON line:
                   steps through ``build_prefill_step(mesh=)`` /
                   ``build_decode_step(mesh=)``, logits and every cache
                   tensor bitwise equal to ``mesh=None``
+  dryrun          the dry run (``launch/dryrun.py``) against the card: each
+                  cell traced as rank 0 of a fake world of one (under
+                  ``FakeTensorMode``, in a child process, beside the card's
+                  run) and run for real: (a) the paper's fused cell, one
+                  batch of 8,192 markers x 23,000 samples x 20,480 traits in
+                  fp32 (``build_fused_step``, inputs on the card); (b)
+                  gemma2-9b whole, a prefill of 4 x 1,024 tokens into 4,160
+                  slots, and granite-moe-1b-a400m whole, one train step of
+                  B=4 x S=4,096 (remat "dots", loss_chunk 1,024, float32
+                  m/v); the trace's argument (rest) bytes within 1% and peak
+                  bytes within 10% of the card's (``memory_allocated`` /
+                  ``max_memory_allocated`` above the bytes before), the fused
+                  cell's gwas_dot launches and FLOPs (``FlopCounterMode`` on
+                  the card's run) equal, its step time beside its
+                  ``compute_s``; (c) ``python -m repro_torch.launch.dryrun
+                  --arch gemma2-9b --shape decode_32k --mesh pod`` and
+                  ``python -m repro_torch.launch.report`` on its record, exit
+                  0, the record ``ok``
 
 The LM phases launch none of the repo's kernels: each reads the counts and
 fails unless all are 0.  Each path's launch counts are set to 0 just before it runs and read just
@@ -189,7 +207,8 @@ runs the device phase and the named phases among ``build``, ``kernel`` and
 ``kernel_tstat`` only (a quick check of the kernels); it prints neither the
 ``kernels`` line nor the ``ok`` line.  ``--only lm_serve`` (and
 ``lm_parity``, ``lm_families``, ``lm_train_parity``, ``lm_train_families``,
-``lm_train``, ``lm_mesh_one``, ``lm_serve_mesh_one``) runs one LM phase alone the same way.  On a machine with two or more cards,
+``lm_train``, ``lm_mesh_one``, ``lm_serve_mesh_one``, ``dryrun``) runs one
+such phase alone the same way.  On a machine with two or more cards,
 
     python3 chip_smoke.py --only build,devices
 
@@ -232,7 +251,9 @@ bytes each rank received through collectives a step, the FLOP bound
 (``launch.roofline.model_flops`` at 4 x 989 TFLOP/s) and the step's share
 of it, one more step under ``torch.profiler`` on every rank (busy share,
 top kernels), and two identical passes compared (the differing gradients
-named).
+named); beside it, rank 0's dry run of the same step on a fake world of 4
+(a child process traces it while the cards run): rest bytes within 1%,
+peak within 10%, collective bytes a step exact.
 (c) Every rank's launch counts of the repo's kernels read 0.  On 4 cards,
 
     python3 chip_smoke.py --only build,lm_serve_mesh
@@ -257,7 +278,9 @@ bytes at rest (weights, caches) and at peak (under 80 GB), the bytes each
 rank moved through collectives per prefill and per decode step, the
 kernels per decode step and one more prefill under ``torch.profiler``,
 and each time beside its bound (prefill: ``launch.roofline.model_flops`` at 4 x 989 TFLOP/s;
-decode: a rank's weights and caches read once at 3.35 TB/s).  (c) Every
+decode: a rank's weights and caches read once at 3.35 TB/s); beside them,
+rank 0's dry run of the prefill and of a decode step on a fake world of 4:
+rest bytes within 1%, peak within 10%, collective bytes exact.  (c) Every
 rank's launch counts of the repo's kernels read 0.
 """
 from __future__ import annotations
@@ -413,6 +436,19 @@ LM_SERVE_MESH = dict(archs=("gemma2-9b", "qwen1.5-32b", "recurrentgemma-2b"),
                                prompt=512, capacity=544, steps=8, factor=4.0),
                      whole=dict(arch="qwen1.5-32b", shape=(1, 4), batch=8, prompt=4096,
                                 capacity=4160, steps=64, peak_limit=80e9))
+# The dry run (launch/dryrun.py) against the card, each cell traced as rank 0
+# of a fake world beside its measurement.  dryrun (one card): (a) the
+# paper's fused cell, one batch of 8,192 markers x 23,000 samples x 20,480
+# traits in fp32 (configs/gwas_ukb.py); (b) gemma2-9b prefill of 4 x 1,024
+# tokens into 4,160 slots, and one granite-moe-1b-a400m train step of B=4 x
+# S=4,096 (remat dots, loss_chunk 1,024, float32 m/v); (c) the CLIs on
+# gemma2-9b decode_32k on the pod mesh.  lm_mesh and lm_serve_mesh hold
+# their (b) cells to the trace too.  Rest (argument) bytes within 1%, peak
+# bytes within 10%, collective bytes and gwas_dot launches exact.
+DRYRUN = dict(seed=2026, lm_serve=dict(arch="gemma2-9b", batch=4, prompt=1024, capacity=4160),
+              lm_train=dict(arch="granite-moe-1b-a400m", batch=4, seq=4096, remat="dots",
+                            loss_chunk=1024),
+              cli=("gemma2-9b", "decode_32k"), tol=dict(argument_bytes=0.01, peak_bytes=0.10))
 
 
 def emit(obj: dict) -> None:
@@ -2137,20 +2173,20 @@ def _mesh_job(mesh, rank: int, job: dict) -> dict:
     stop = job.get("stop_after")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    sharding.collective_bytes = 0
     n = 0
     t0 = time.perf_counter()
-    events = session.events()
-    for cell in events:
-        digest.update(f"{cell.batch_index},{cell.block_index}".encode())
-        for key in sorted(cell.arrays):
-            digest.update(key.encode() + np.ascontiguousarray(cell.arrays[key]).tobytes())
-        if writer is not None:
-            writer.write(cell)
-        n += 1
-        if n == stop:
-            break
-    events.close()
+    with sharding.record_collectives() as colls:
+        events = session.events()
+        for cell in events:
+            digest.update(f"{cell.batch_index},{cell.block_index}".encode())
+            for key in sorted(cell.arrays):
+                digest.update(key.encode() + np.ascontiguousarray(cell.arrays[key]).tobytes())
+            if writer is not None:
+                writer.write(cell)
+            n += 1
+            if n == stop:
+                break
+        events.close()
     if writer is not None and stop is None:
         writer.close()
     wall = time.perf_counter() - t0
@@ -2158,7 +2194,7 @@ def _mesh_job(mesh, rank: int, job: dict) -> dict:
     return {"prepare_s": prepare_s, "wall_s": wall, "step_s": metrics["step_s"],
             "extract_s": metrics["extract_s"], "decode_s": metrics["decode_s"],
             "cells": n, "launches": read_launches(),
-            "collective_bytes_per_cell": sharding.collective_bytes / max(n, 1),
+            "collective_bytes_per_cell": sum(c.wire_bytes for c in colls) / max(n, 1),
             "digest": digest.hexdigest(), "executor": session.executor_info,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
@@ -3441,11 +3477,11 @@ def _lm_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
     step = build_train_step(cfg, tcfg=tcfg, mesh=m41)
     losses, step_s, received = [], [], []
     for i in range(w["steps"]):
-        sh.collective_bytes = 0
-        (model, opt, metrics), dt = _timed(lambda: step(model, opt, batches[i]))
+        with sh.record_collectives() as colls:
+            (model, opt, metrics), dt = _timed(lambda: step(model, opt, batches[i]))
         losses.append(float(metrics["loss"]))
         step_s.append(dt)
-        received.append(sh.collective_bytes)
+        received.append(sum(c.wire_bytes for c in colls))
     peak = torch.cuda.max_memory_allocated()
     profile = _device_profile(lambda: step(model, opt, batches[-1]), 1, top=10)
     l1, _, g1 = loss_and_grads(cfg, tcfg, model, batches[-1], mesh=m41)
@@ -3479,10 +3515,18 @@ def phase_lm_mesh() -> dict:
     n = torch.cuda.device_count()
     check(n >= 4, f"lm_mesh needs 4 cards, found {n}")
     p = LM_MESH
+    w = p["whole"]
+    predictions = _Predictions({"whole": dict(
+        arch=p["arch"], cfg=_lm_config(p["arch"]), mesh=(4, 1),
+        shape=("train_4k", w["seq"], w["batch"], "train"),
+        tcfg=dict(n_microbatches=w["n_microbatches"], remat=w["remat"],
+                  loss_chunk=w["loss_chunk"]))})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
     try:
         ranks = _spawn_world(tmp, (2, 2), p, body="_lm_mesh_rank")
+        predicted = predictions.result()["whole"]
     finally:
+        predictions.close()
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = ranks[0]
     parity = lambda r: {**{f"gemma2 {k}": v for k, v in r["gemma2"].items()},  # noqa: E731
@@ -3509,6 +3553,11 @@ def phase_lm_mesh() -> dict:
           f"lm_mesh: granite losses {cost}")
     for r in ranks:
         check(not any(r["launches"].values()), f"lm_mesh: kernels launched {r['launches']}")
+    step_bytes = set(whole["received_bytes_per_step"])
+    check(len(step_bytes) == 1, f"lm_mesh: steps moved different bytes {step_bytes}")
+    dry_run = _held("lm_mesh whole", {"argument_bytes": whole["rest_bytes"],
+                                      "peak_bytes": whole["peak_bytes"] - whole["base_bytes"],
+                                      "collective_bytes": step_bytes.pop()}, predicted)
     tokens = whole["batch"] * whole["seq"]
     row = {"phase": "lm_mesh", "cards": n, "backend": "nccl", "meshes": r0["meshes"],
            "gemma2_parity": r0["gemma2"], "granite_parity": r0["granite"],
@@ -3528,7 +3577,7 @@ def phase_lm_mesh() -> dict:
                      "rest_bytes_per_rank": [r["whole"]["rest_bytes"] for r in ranks],
                      "received_bytes_per_step_per_rank": [r["whole"]["received_bytes_per_step"]
                                                           for r in ranks],
-                     "tokens_per_step": tokens},
+                     "tokens_per_step": tokens, "dry_run": dry_run},
            "launches": [r["launches"] for r in ranks], "spawn_s": r0["spawn_s"]}
     if "step_ms_median" in whole:
         row["whole"]["tokens_per_s"] = tokens / (whole["step_ms_median"] / 1e3)
@@ -3779,9 +3828,9 @@ def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
     weights = torch.cuda.memory_allocated() - base
     init_peak = torch.cuda.max_memory_allocated() - base
     prefill, decode = build_prefill_step(cfg, shape, mesh=m), build_decode_step(cfg, shape, mesh=m)
-    sh.collective_bytes = 0
-    (logits, caches), prefill_s = _timed(lambda: prefill(model, prompt))
-    prefill_bytes = sh.collective_bytes
+    with sh.record_collectives() as colls:
+        (logits, caches), prefill_s = _timed(lambda: prefill(model, prompt))
+    prefill_bytes = sum(c.wire_bytes for c in colls)
     cache_bytes = sum(t.numel() * t.element_size() for t in _cache_tensors(caches))
     finite = bool(torch.isfinite(logits).all())
     token = _greedy(logits, m)
@@ -3789,9 +3838,9 @@ def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
     step_s, step_bytes = [], []
     for i in range(w["steps"] - 1):
         pos = torch.full((w["batch"],), w["prompt"] + i, dtype=torch.int32, device=dev)
-        sh.collective_bytes = 0
-        (logits, caches), dt = _timed(lambda: decode(model, token, pos, caches))
-        step_bytes.append(sh.collective_bytes)
+        with sh.record_collectives() as colls:
+            (logits, caches), dt = _timed(lambda: decode(model, token, pos, caches))
+        step_bytes.append(sum(c.wire_bytes for c in colls))
         step_s.append(dt)
         finite = finite and bool(torch.isfinite(logits).all())
         token = _greedy(logits, m)
@@ -3822,6 +3871,7 @@ def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
         "decode_step_ms_p95": warm[min(len(warm) - 1, math.ceil(0.95 * len(warm)) - 1)],
         "decode_bound_ms": 1e3 * (weights + cache_bytes) / HBM_BYTES_S,
         "decode_collective_bytes_per_step": statistics.median(step_bytes),
+        "decode_collective_bytes_set": sorted(set(step_bytes)),
         "decode_profile": profile, "prefill_profile": prefill_profile, "finite": finite,
         "tokens_digest": hashlib.sha256(torch.stack(tokens).cpu().numpy().tobytes()).hexdigest(),
     }
@@ -3839,10 +3889,18 @@ def phase_lm_serve_mesh() -> dict:
     n = torch.cuda.device_count()
     check(n >= 4, f"lm_serve_mesh needs 4 cards, found {n}")
     p = LM_SERVE_MESH
+    w = p["whole"]
+    cell = dict(arch=w["arch"], cfg=_lm_config(w["arch"]), mesh=w["shape"])
+    predictions = _Predictions({
+        "prefill": dict(cell, shape=("serve", w["capacity"], w["batch"], "prefill"),
+                        prompt=w["prompt"]),
+        "decode": dict(cell, shape=("serve", w["capacity"], w["batch"], "decode"))})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_serve_mesh_")
     try:
         ranks = _spawn_world(tmp, (2, 2), p, body="_lm_serve_mesh_rank")
+        predicted = predictions.result()
     finally:
+        predictions.close()
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = ranks[0]
     for label, row in r0["parity"].items():
@@ -3862,6 +3920,19 @@ def phase_lm_serve_mesh() -> dict:
     for r in ranks:
         check(not any(r["launches"].values()), f"lm_serve_mesh: kernels launched {r['launches']}")
     w0 = whole[0]
+    pf, dc = predicted["prefill"], predicted["decode"]
+    check(len(w0["decode_collective_bytes_set"]) == 1,
+          f"lm_serve_mesh: decode steps moved different bytes {w0['decode_collective_bytes_set']}")
+    dry_run = {
+        "rest_and_peak": _held("lm_serve_mesh whole",
+                               {"argument_bytes": w0["weights_bytes"] + w0["cache_bytes"],
+                                "peak_bytes": w0["peak_bytes"]},
+                               {"argument_bytes": dc["argument_bytes"],
+                                "peak_bytes": max(pf["peak_bytes"], dc["peak_bytes"])}),
+        "prefill": _held("lm_serve_mesh prefill",
+                         {"collective_bytes": w0["prefill_collective_bytes"]}, pf),
+        "decode": _held("lm_serve_mesh decode",
+                        {"collective_bytes": w0["decode_collective_bytes_set"][0]}, dc)}
     row = {"phase": "lm_serve_mesh", "cards": n, "backend": "nccl", "meshes": r0["meshes"],
            "parity": {k: {kk: vv for kk, vv in v.items() if kk != "digest"}
                       for k, v in r0["parity"].items()},
@@ -3870,10 +3941,264 @@ def phase_lm_serve_mesh() -> dict:
                                "prefill_s", "decode_step_ms_median",
                                "prefill_collective_bytes", "decode_collective_bytes_per_step")}},
            "launches": [r["launches"] for r in ranks], "spawn_s": r0["spawn_s"]}
+    row["whole"]["dry_run"] = dry_run
     row["whole"]["prefill_share_of_bound"] = w0["prefill_bound_s"] / w0["prefill_s"]
     row["whole"]["decode_share_of_bound"] = w0["decode_bound_ms"] / w0["decode_step_ms_median"]
     emit(row)
     return row
+
+
+# ------------------------------------------------------------ dry run
+
+
+def _predict(cell: dict) -> dict:
+    """Rank 0's trace of one cell on a fake world of the cell's mesh shape
+    (``launch.dryrun``): the card's path, under ``FakeTensorMode``.  Runs in
+    a child process: the fake world, like any world, is one per process."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.launch.roofline import HW
+    from repro_torch.train.train_step import TrainStepConfig
+
+    torch.set_num_threads(1)
+    shape = tuple(cell["mesh"])
+    world = math.prod(shape)
+    with fake_world(world, device=D.trace_device(cell["arch"])):
+        mesh = make_mesh(shape, ("data", "model"))
+        if cell["arch"] == "gwas_ukb":
+            trace = D.trace_gwas_cell(cell["engine"], mesh, g=cell["g"])
+        else:
+            tcfg = TrainStepConfig(**cell["tcfg"]) if "tcfg" in cell else None
+            trace, _ = D.trace_lm_cell(cell["arch"], ShapeConfig(*cell["shape"]), mesh,
+                                       cfg=cell["cfg"], tcfg=tcfg, prompt=cell.get("prompt"))
+    peak = cell.get("peak_flops", HW().peak_flops)
+    return {"argument_bytes": trace.memory["argument_bytes"],
+            "peak_bytes": trace.memory["peak_bytes"], "flops": trace.flops,
+            "compute_s": trace.flops / peak, "peak_flops": peak,
+            "collective_bytes": sum(c.wire_bytes for c in trace.collectives),
+            "n_collectives": len(trace.collectives), "kernel_calls": trace.kernel_calls,
+            "trace_s": trace.seconds}
+
+
+class _Predictions:
+    """``_predict`` of each named cell, in spawned child processes started
+    at once (a core each; the card's measurements go on meanwhile)."""
+
+    def __init__(self, cells: dict):
+        import multiprocessing
+
+        self._pool = multiprocessing.get_context("spawn").Pool(len(cells))
+        self._jobs = {k: self._pool.apply_async(_predict, (c,)) for k, c in cells.items()}
+
+    def result(self, timeout: float = 900) -> dict:
+        try:
+            return {k: job.get(timeout) for k, job in self._jobs.items()}
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self._pool.terminate()
+        self._pool.join()
+
+
+def _held(label: str, measured: dict, predicted: dict) -> dict:
+    """The trace's numbers beside the card's, and the checks of the dry
+    run: argument (rest) bytes within 1%, peak bytes within 10%, collective
+    bytes and gwas_dot launches exact (for the keys ``measured`` has)."""
+    tol = DRYRUN["tol"]
+    row = {"measured": measured, "predicted": predicted}
+    for key in ("argument_bytes", "peak_bytes"):
+        if key not in measured:
+            continue
+        row[f"{key}_rel_err"] = (predicted[key] - measured[key]) / measured[key]
+        check(abs(row[f"{key}_rel_err"]) <= tol[key],
+              f"dryrun {label}: {key} predicted {predicted[key]} vs {measured[key]} on the card")
+    if "collective_bytes" in measured:
+        check(predicted["collective_bytes"] == measured["collective_bytes"],
+              f"dryrun {label}: collective bytes predicted {predicted['collective_bytes']} vs "
+              f"{measured['collective_bytes']} on the card")
+    if "gwas_dot_launches" in measured:
+        check(predicted["kernel_calls"].get("gwas_dot", 0) == measured["gwas_dot_launches"],
+              f"dryrun {label}: gwas_dot calls {predicted['kernel_calls']} vs "
+              f"{measured['gwas_dot_launches']} launches on the card")
+    return row
+
+
+def _measure_fused(g) -> dict:
+    """One real ``build_fused_step`` batch step of the workload ``g`` on the
+    card, inputs resident there (the serial scan's staging): the inputs'
+    bytes, the step's peak above them, its time, launches and FLOPs (a
+    second call under ``FlopCounterMode``)."""
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core.association import AssocOptions
+    from repro_torch.core.engines import build_fused_step
+
+    m, n, p = g.batch_markers, g.n_samples, g.n_traits
+    n_pad = -(-n // g.block_n) * g.block_n
+    gen = torch.Generator(device=DEVICE).manual_seed(DRYRUN["seed"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = (torch.randint(0, 256, (m, n_pad // 4), dtype=torch.uint8, device=DEVICE,
+                          generator=gen),
+            torch.rand((m, 1), device=DEVICE, generator=gen),
+            torch.rand((m, 1), device=DEVICE, generator=gen) + 0.5,
+            torch.ones((m,), dtype=torch.bool, device=DEVICE),
+            torch.randn((n, p), device=DEVICE, generator=gen))
+    rest = torch.cuda.memory_allocated() - base
+    step = build_fused_step(n_samples=n, n_covariates=g.n_covariates,
+                            options=AssocOptions(precision="fp32"), block_m=g.block_m,
+                            block_n=g.block_n, block_p=min(g.block_p, p // 16))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, step_s = _timed(lambda: step(*args))
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = read_launches()["gwas_dot"]
+    finite = bool(torch.isfinite(out["r"]).all())
+    del out
+    with FlopCounterMode(display=False) as flop:
+        flop_out = step(*args)
+    del flop_out, args
+    torch.cuda.empty_cache()
+    return {"argument_bytes": rest, "peak_bytes": peak, "gwas_dot_launches": launches,
+            "flops": flop.get_total_flops(), "step_s": step_s, "r_finite": finite}
+
+
+def _measure_lm(cfg, shape, tcfg, prompt: int | None) -> dict:
+    """One real step of an LM cell on the card with no mesh, weights drawn
+    a parameter at a time (``init_blocks``), AdamW state for training: the
+    rest bytes (weights and state) and the step's peak above the bytes
+    allocated before them."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import api as M
+    from repro_torch.models import convert
+    from repro_torch.train import build_prefill_step, make_batch
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import build_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = convert.init_blocks(cfg, DRYRUN["seed"], device=DEVICE)
+    fed = dataclasses.replace(shape, seq_len=prompt or shape.seq_len)
+    batch = make_batch(cfg, fed, 0, seed=DRYRUN["seed"])
+    batch = {k: v for k, v in batch.items() if k in M.input_specs(cfg, fed)}
+    if shape.kind == "train":
+        model.requires_grad_(True)
+        opt = adamw_init(tcfg.optimizer, model)
+        step = build_train_step(cfg, tcfg=tcfg)
+        run = lambda: step(model, opt, batch)  # noqa: E731
+    else:
+        step = build_prefill_step(cfg, shape)
+        run = lambda: step(model, batch)  # noqa: E731
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    out, step_s = _timed(run)
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, run, step, model, batch
+    if shape.kind == "train":
+        del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"argument_bytes": rest, "peak_bytes": peak, "step_s": step_s}
+
+
+def _dryrun_cli(tmp: str) -> dict:
+    """``python -m repro_torch.launch.dryrun`` on one cell of the pod mesh
+    and ``python -m repro_torch.launch.report`` on its record, as a user
+    runs them: exit codes, the record's numbers, the report's text."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out_dir = os.path.join(tmp, "dryrun")
+    arch, shape = DRYRUN["cli"]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shape, "--mesh", "pod", "--out-dir", out_dir],
+                         env=env, capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"dryrun CLI failed:\n{run.stderr[-3000:]}")
+    with open(os.path.join(out_dir, f"{arch}__{shape}__pod.json")) as f:
+        record = json.load(f)
+    check(record["status"] == "ok", f"dryrun CLI record: {record}")
+    report = subprocess.run([sys.executable, "-m", "repro_torch.launch.report", "--dir", out_dir],
+                            env=env, capture_output=True, text=True, timeout=300)
+    check(report.returncode == 0 and f"| {arch} | {shape} | 16x16 | ok |" in report.stdout,
+          f"report CLI failed:\n{report.stdout[-2000:]}{report.stderr[-2000:]}")
+    keep = ("mesh", "traced_on", "lower_s", "memory", "flops_per_device_exact",
+            "collective_wire_bytes", "collectives_by_kind", "compute_s", "memory_floor_s",
+            "collective_s", "dominant", "useful_flops_ratio", "fits_hbm", "hbm_util")
+    return {"arch": arch, "shape": shape, "mesh_kind": "pod", "dryrun_s": cli_s,
+            "record": {k: record[k] for k in keep}, "report": report.stdout}
+
+
+def phase_dryrun(tmp: str) -> dict:
+    """The dry run against the card (module docstring): (a) the paper's
+    fused cell, (b) the lm_serve and lm_train cells, each traced on a fake
+    world of one beside its measurement; (c) the dry-run and report CLIs."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.roofline import HW
+    from repro_torch.train.train_step import TrainStepConfig
+
+    p = DRYRUN
+    g = _gwas_config()
+    serve, train = p["lm_serve"], p["lm_train"]
+    cells = {
+        "fused": dict(arch="gwas_ukb", engine="fused", g=g, mesh=(1, 1),
+                      peak_flops=HW().peak_flops_tf32 / 3),
+        "lm_serve": dict(arch=serve["arch"], cfg=_lm_config(serve["arch"]), mesh=(1, 1),
+                         shape=("lm_serve", serve["capacity"], serve["batch"], "prefill"),
+                         prompt=serve["prompt"]),
+        "lm_train": dict(arch=train["arch"], cfg=_lm_config(train["arch"]), mesh=(1, 1),
+                         shape=("lm_train", train["seq"], train["batch"], "train"),
+                         tcfg=dict(remat=train["remat"], loss_chunk=train["loss_chunk"])),
+    }
+    from concurrent.futures import ThreadPoolExecutor
+
+    predictions = _Predictions(cells)
+    try:
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            cli_job = pool.submit(_dryrun_cli, tmp)
+            measured = {"fused": _measure_fused(g)}
+            for name in ("lm_serve", "lm_train"):
+                c = cells[name]
+                tcfg = TrainStepConfig(**c["tcfg"]) if "tcfg" in c else None
+                measured[name] = _measure_lm(c["cfg"], ShapeConfig(*c["shape"]), tcfg,
+                                             c.get("prompt"))
+            predicted = predictions.result()
+            cli = cli_job.result()
+    finally:
+        predictions.close()
+    check(measured["fused"]["r_finite"], "dryrun: the fused step's r is not finite")
+    rows = {name: _held(name, measured[name], predicted[name]) for name in cells}
+    rows["fused"]["flops_rel_err"] = (predicted["fused"]["flops"] - measured["fused"]["flops"]) / \
+        measured["fused"]["flops"]
+    check(predicted["fused"]["flops"] == measured["fused"]["flops"],
+          f"dryrun fused: FLOPs {predicted['fused']['flops']} vs {measured['fused']['flops']}")
+    rows["fused"]["step_s_over_compute_s"] = measured["fused"]["step_s"] / \
+        predicted["fused"]["compute_s"]
+    row = {"phase": "dryrun", "workload": {"n_samples": g.n_samples, "n_traits": g.n_traits,
+                                           "batch_markers": g.batch_markers},
+           "cells": rows, "cli": cli, "tolerances": p["tol"]}
+    emit(row)
+    return row
+
+
+def _gwas_config():
+    """The paper's workload (``configs/gwas_ukb.py``; the CPU rehearsal
+    swaps in ``reduced()``)."""
+    from repro_torch.configs import get_config
+
+    return get_config("gwas_ukb")
 
 
 def _scan_study(files: dict):
@@ -3902,7 +4227,8 @@ QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": ph
                 "lm_families": phase_lm_families, "lm_train_parity": phase_lm_train_parity,
                 "lm_train_families": phase_lm_train_families, "lm_train": phase_lm_train,
                 "lm_mesh_one": phase_lm_mesh_one, "lm_mesh": phase_lm_mesh,
-                "lm_serve_mesh_one": phase_lm_serve_mesh_one, "lm_serve_mesh": phase_lm_serve_mesh}
+                "lm_serve_mesh_one": phase_lm_serve_mesh_one, "lm_serve_mesh": phase_lm_serve_mesh,
+                "dryrun": _in_tmp(phase_dryrun)}
 
 
 def main(argv: list[str]) -> int:
@@ -3959,6 +4285,7 @@ def main(argv: list[str]) -> int:
     phase_lm_train()
     phase_lm_mesh_one()
     phase_lm_serve_mesh_one()
+    _in_tmp(phase_dryrun)()
     kernels = [{
         "name": "gwas_dot",
         "route": "cuda",

@@ -7,12 +7,21 @@ tensors on a CUDA device, or runs the plain PyTorch version (``ref.py``) for
 tensors on the CPU.  There is no fallback: a CUDA tensor either launches the
 kernel or raises.  ``launches`` counts kernel launches (never the plain
 version's runs), so a caller can show that a path went through the kernel.
+
+Under a dispatch mode (a trace: ``FakeTensorMode``, ``FlopCounterMode``)
+the launch goes through the custom op ``torch.ops.repro_torch.gwas_dot``:
+under ``FakeTensorMode`` (a dry run) its registered fake gives the
+outputs' shapes and nothing launches, and ``FlopCounterMode`` counts it as
+``2 M N P`` (N the sample rows of y), the product it computes.  Outside
+one, the wrapper calls the op's implementation itself (a dispatched custom
+op takes a round trip through the dispatcher and Python on every call).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.gwas_dot.ref import gwas_dot_ref, unpack_tiled
 
@@ -88,7 +97,6 @@ def gwas_dot_fused(
     the kernel's own tiles are fixed in the source and its sums run in one
     order whatever the shape.
     """
-    global launches
     m, n_pad, p = _check(packed, mean, inv_std, y, block_n, input_dtype)
     device = packed.device
     if device.type == "cpu":
@@ -102,10 +110,19 @@ def gwas_dot_fused(
         )
     if device.type != "cuda":
         raise ValueError(f"gwas_dot runs on cuda or cpu tensors, not {device.type}")
-    packed = packed.contiguous()
-    mean = mean.reshape(-1).contiguous()
-    inv_std = inv_std.reshape(-1).contiguous()
-    y = y.contiguous()
+    launch = _gwas_dot_op if torch._C._len_torch_dispatch_stack() else _launch
+    return launch(packed.contiguous(), mean.reshape(-1).contiguous(),
+                  inv_std.reshape(-1).contiguous(), y.contiguous(), n_pad, block_n,
+                  float(n_samples), float(dof), float(eps), input_dtype == "bf16")
+
+
+def _launch(packed: torch.Tensor, mean: torch.Tensor, inv_std: torch.Tensor,
+            y: torch.Tensor, n_pad: int, block_n: int, n_samples: float, dof: float,
+            eps: float, bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on checked, contiguous CUDA inputs."""
+    global launches
+    device = packed.device
+    m, p = int(packed.shape[0]), int(y.shape[1])
     r = torch.empty((m, p), dtype=torch.float32, device=device)
     t = torch.empty((m, p), dtype=torch.float32, device=device)
     fn = _launcher()
@@ -115,10 +132,23 @@ def gwas_dot_fused(
             packed.data_ptr(), mean.data_ptr(), inv_std.data_ptr(), y.data_ptr(),
             r.data_ptr(), t.data_ptr(),
             m, n_pad, p, int(y.shape[0]), int(packed.shape[1]), int(block_n),
-            float(n_samples), float(dof), float(eps),
-            1 if input_dtype == "bf16" else 0, stream,
+            n_samples, dof, eps, 1 if bf16 else 0, stream,
         )
     if err != 0:
         raise RuntimeError(f"gwas_dot kernel launch failed: cudaError_t {err}")
     launches += 1
     return r, t
+
+
+_gwas_dot_op = torch.library.custom_op("repro_torch::gwas_dot", _launch, mutates_args=())
+
+
+@_gwas_dot_op.register_fake
+def _gwas_dot_fake(packed, mean, inv_std, y, n_pad, block_n, n_samples, dof, eps, bf16):
+    shape = (packed.shape[0], y.shape[1])
+    return tuple(packed.new_empty(shape, dtype=torch.float32) for _ in range(2))
+
+
+@register_flop_formula(torch.ops.repro_torch.gwas_dot)
+def _gwas_dot_flops(packed_shape, mean_shape, inv_std_shape, y_shape, *args, **kwargs) -> int:
+    return 2 * packed_shape[0] * y_shape[0] * y_shape[1]

@@ -20,6 +20,14 @@ The kernels and the plain versions compute ``t = r * rsqrt(denom / dof)``
 (the kernels' formula), not ``stats.t_from_r``'s ``r * sqrt(dof / denom)``.
 ``block_m``/``block_p`` are the reference's tile shape; the CUDA kernels
 work on the flat tile and take any shape, so they only validate them.
+
+Under a dispatch mode (a trace) the launches go through the custom ops
+``torch.ops.repro_torch.tstat`` and ``torch.ops.repro_torch.compact``:
+under ``FakeTensorMode`` (a dry run) their registered fakes give the
+outputs' shapes and nothing launches.  Outside one, the wrappers call the
+ops' implementations themselves: a dispatched custom op takes a round trip
+through the dispatcher and Python on every call, on kernels whose whole
+call is a few tens of microseconds.
 """
 from __future__ import annotations
 
@@ -153,11 +161,19 @@ def screen_compact_plain(
 
 
 def _compact(
-    src: torch.Tensor, t: torch.Tensor | None, t2_screen: float, capacity: int, dof: float,
-    eps: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the compaction kernel on ``src``'s device: r mode,
-    writing ``t`` too, or t mode when ``t`` is None.  Returns (idx, count)."""
+    src: torch.Tensor, t_mode: bool, t2_screen: float, capacity: int, dof: float, eps: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the compaction kernel on ``src``'s device: r mode
+    (``src`` is r; the t tile is written too) or t mode (``src`` is t; the
+    returned t is empty).  Returns (t, idx, count)."""
+    launch = _compact_op if torch._C._len_torch_dispatch_stack() else _compact_launch
+    return launch(src.contiguous(), t_mode, float(t2_screen), capacity, float(dof), float(eps))
+
+
+def _compact_launch(src: torch.Tensor, t_mode: bool, t2_screen: float, capacity: int,
+                    dof: float, eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    global screen_launches, compact_launches
+    t = src.new_empty((0,) if t_mode else src.shape)
     idx = torch.empty((capacity,), dtype=torch.int32, device=src.device)
     count = torch.empty((), dtype=torch.int32, device=src.device)
     lib = _library()
@@ -165,12 +181,45 @@ def _compact(
     with _workspace_lock:
         work, epoch = _workspace(src.device, stream, src.numel())
         err = lib.compact_launch(
-            src.data_ptr(), None if t is None else t.data_ptr(), idx.data_ptr(),
-            count.data_ptr(), work.data_ptr(), src.numel(), capacity, epoch, float(dof),
-            float(t2_screen), float(eps), int(t is None), src.device.index, stream)
+            src.data_ptr(), None if t_mode else t.data_ptr(), idx.data_ptr(),
+            count.data_ptr(), work.data_ptr(), src.numel(), capacity, epoch, dof,
+            t2_screen, eps, int(t_mode), src.device.index, stream)
     if err != 0:
         raise RuntimeError(f"compaction kernel launch failed: cudaError_t {err}")
-    return idx, count
+    if t_mode:
+        compact_launches += 1
+    else:
+        screen_launches += 1
+    return t, idx, count
+
+
+_compact_op = torch.library.custom_op("repro_torch::compact", _compact_launch, mutates_args=())
+
+
+@_compact_op.register_fake
+def _compact_fake(src, t_mode, t2_screen, capacity, dof, eps):
+    return (src.new_empty((0,) if t_mode else src.shape),
+            src.new_empty((capacity,), dtype=torch.int32), src.new_empty((), dtype=torch.int32))
+
+
+def _tstat_launch(r: torch.Tensor, dof: float, eps: float) -> torch.Tensor:
+    global tstat_launches
+    t = torch.empty_like(r)
+    lib = _library()
+    err = lib.tstat_launch(r.data_ptr(), t.data_ptr(), r.numel(), dof, eps, r.device.index,
+                           _stream(r.device))
+    if err != 0:
+        raise RuntimeError(f"tstat kernel launch failed: cudaError_t {err}")
+    tstat_launches += 1
+    return t
+
+
+_tstat_op = torch.library.custom_op("repro_torch::tstat", _tstat_launch, mutates_args=())
+
+
+@_tstat_op.register_fake
+def _tstat_fake(r, dof, eps):
+    return torch.empty_like(r)
 
 
 def tstat(
@@ -183,19 +232,11 @@ def tstat(
 ) -> torch.Tensor:
     """Elementwise ``t = clip(r) * rsqrt(max(1 - r^2, eps) / dof)`` over an
     ``(M, P)`` float32 tile."""
-    global tstat_launches
     _check(r, block_m, block_p)
     if r.device.type == "cpu":
         return tstat_plain(r, dof, eps=eps)
-    r = r.contiguous()
-    t = torch.empty_like(r)
-    lib = _library()
-    err = lib.tstat_launch(r.data_ptr(), t.data_ptr(), r.numel(), float(dof), float(eps),
-                           r.device.index, _stream(r.device))
-    if err != 0:
-        raise RuntimeError(f"tstat kernel launch failed: cudaError_t {err}")
-    tstat_launches += 1
-    return t
+    launch = _tstat_op if torch._C._len_torch_dispatch_stack() else _tstat_launch
+    return launch(r.contiguous(), float(dof), float(eps))
 
 
 def screen_compact(
@@ -217,17 +258,12 @@ def screen_compact(
     (trustworthy past ``capacity``).  ``t2_screen`` must be positive: lanes
     with ``r = 0`` give ``t = 0`` and must never survive.
     """
-    global screen_launches
     _check(r, block_m, block_p)
     capacity = int(capacity)
     _check_screen(r, t2_screen, capacity)
     if r.device.type == "cpu":
         return screen_compact_plain(r, dof, t2_screen, capacity, eps=eps)
-    r = r.contiguous()
-    t = torch.empty_like(r)
-    idx, count = _compact(r, t, t2_screen, capacity, dof, eps)
-    screen_launches += 1
-    return t, idx, count
+    return _compact(r, False, t2_screen, capacity, dof, eps)
 
 
 def compact_survivors(
@@ -236,12 +272,9 @@ def compact_survivors(
     """The screen's t mode: ``(hit_idx, screen_count)`` of an existing
     ``(M, P)`` float32 t tile, as ``screen_compact`` returns them, in one
     kernel launch on a card."""
-    global compact_launches
     _check(t, 1, 1)
     capacity = int(capacity)
     _check_screen(t, t2_screen, capacity)
     if t.device.type == "cpu":
         return compact_survivors_plain(t, t2_screen, capacity)
-    idx, count = _compact(t.contiguous(), None, t2_screen, capacity, 1.0, 0.0)
-    compact_launches += 1
-    return idx, count
+    return _compact(t, True, t2_screen, capacity, 1.0, 0.0)[1:]

@@ -12,16 +12,52 @@ shape.  A smaller world gets ``(world, 1)`` (two pods: ``(2, world / 2,
 1)``): every rank on "data", which is FSDP only (ROADMAP.md §3, a
 departure).  A world that cannot carry the axis names raises
 ``ValueError``; there is no quiet fallback to one process.
+
+``fake_world(world, rank)`` starts a world of ``world`` ranks inside this
+one process, on torch's ``"fake"`` backend, whose collectives move nothing:
+the dry run (``launch.dryrun``) runs one rank's step there under
+``FakeTensorMode``, so that the step traces every collective and every op
+of that rank on a world of any size, with no card and no storage.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch.distributed as dist
 
-__all__ = ["make_production_mesh", "make_mesh", "production_shape", "POD_CHIPS", "describe"]
+__all__ = ["make_production_mesh", "make_mesh", "production_shape", "POD_CHIPS", "describe",
+           "fake_world"]
 
 POD_CHIPS = 256  # the reference's 16 x 16 pod
+
+# The device type of the meshes of the running fake world (None: no fake
+# world runs; the process group, like it, is one per process).
+_fake_device: str | None = None
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0, *, device: str = "cuda"):
+    """A ``torch.distributed`` world of ``world`` ranks in this process, as
+    rank ``rank``, on the ``"fake"`` backend (its collectives return at once
+    and move nothing); destroyed on exit.  Meshes made in it lie on
+    ``device``: "cuda" traces the card's path (a fake card under
+    ``FakeTensorMode``), "cpu" the CPU's.  A process that already has a
+    world raises ``RuntimeError``."""
+    global _fake_device
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("this process already has a torch.distributed world")
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"a fake world's meshes lie on cuda or cpu, not {device!r}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    _fake_device = device
+    try:
+        yield
+    finally:
+        _fake_device = None
+        dist.destroy_process_group()
 
 
 def production_shape(world: int, *, multi_pod: bool = False) -> tuple[tuple[int, ...],
@@ -46,7 +82,8 @@ def production_shape(world: int, *, multi_pod: bool = False) -> tuple[tuple[int,
 def make_mesh(shape, axes):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over every rank of the
     initialized world (the counterpart of ``jax.make_mesh``): on the rank's
-    card under NCCL, on the CPU under gloo."""
+    card under NCCL, on the CPU under gloo, on ``fake_world``'s device in a
+    fake world."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_available() or not dist.is_initialized():
@@ -56,7 +93,8 @@ def make_mesh(shape, axes):
     world = dist.get_world_size()
     if len(shape) != len(axes) or math.prod(shape) != world:
         raise ValueError(f"mesh {shape} over axes {axes} does not cover a world of {world}")
-    kind = "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
+    backend = str(dist.get_backend())
+    kind = (_fake_device or "cpu") if backend == "fake" else ("cuda" if "nccl" in backend else "cpu")
     return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 

@@ -347,15 +347,18 @@ def init_blocks(cfg: ModelConfig, seed: int, *, mesh=None, specs: dict | None = 
     blocks plus the largest parameter; every mesh gets the blocks of the
     same whole model."""
     from repro_torch.runtime import sharding as sh
-    from repro_torch.runtime.device import resolve_device
+    from repro_torch.runtime.device import fake_mode_active, resolve_device
 
     if (mesh is None) != (specs is None):
         raise ValueError("init_blocks takes a mesh and the parameters' specs on it together")
     model = M.abstract_params(cfg, max_positions=max_positions)
     dev = resolve_device(device) if mesh is None else sh.local_device(mesh)
+    # a fake card (a dry run) draws no values, and a CPU-only build has no
+    # CUDA generator: its generators lie on the host
+    gen_dev = "cpu" if fake_mode_active() else dev
     with torch.no_grad():
         for name, meta in list(model.named_parameters()):
-            gen = torch.Generator(device=dev).manual_seed(_param_seed(seed, name))
+            gen = torch.Generator(device=gen_dev).manual_seed(_param_seed(seed, name))
             full = L.draw(torch.empty(meta.shape, dtype=meta.dtype, device=dev), meta.init_law, gen)
             block = full if specs is None else sh.shard_local(full, mesh, specs[name])
             if block.untyped_storage().nbytes() > block.numel() * block.element_size():

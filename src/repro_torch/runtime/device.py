@@ -1,7 +1,10 @@
 """Device resolution and the port's fp32 precision contract.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; a missing
-card is an error, never a quiet move to the CPU.  Resolving a device also
+card is an error, never a quiet move to the CPU.  Under a
+``FakeTensorMode`` (a dry run: ``launch.dryrun``) a card is a fake one,
+``cuda:0`` unless an index is asked for, with or without a card: nothing
+runs and nothing is stored there.  Resolving a device also
 pins float32 products to full fp32: the reference computes them at
 ``Precision.HIGHEST`` and holds r to 2e-6, which TF32 would break.
 """
@@ -11,7 +14,18 @@ import contextlib
 
 import torch
 
-__all__ = ["on_stream", "resolve_device", "synchronize"]
+__all__ = ["fake_mode_active", "on_stream", "resolve_device", "synchronize"]
+
+
+def fake_mode_active() -> bool:
+    """Whether a ``FakeTensorMode`` is active on this thread.  The first
+    test (is any dispatch mode active) is one C call, so the card's path,
+    which runs under none, pays nothing more."""
+    if not torch._C._len_torch_dispatch_stack():
+        return False
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode() is not None
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
@@ -21,6 +35,8 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     available.
     """
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and fake_mode_active():
+        return torch.device("cuda", dev.index or 0)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -33,10 +33,19 @@ partials), ``tp_max`` (the max of a partial softmax) and ``vocab_lookup``
 
 LM parameters use MaxText-style *logical* axes mapped to physical axes by
 ``LogicalAxisRules``.
+
+Every collective a step issues through these helpers (``gather_full``,
+``axis_rows``, ``sum_over``, the gathers and reduces of the LM's parameters
+and activations) is recorded as a ``launch.roofline.Collective`` in each
+open ``record_collectives()`` list; an axis of size 1 issues none.  The
+set-up exchanges (``broadcast_object``, ``gather_objects``,
+``broadcast_array``) are not steps' collectives and are not recorded.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass
 from typing import Any
 
@@ -76,12 +85,42 @@ __all__ = [
     "broadcast_object",
     "gather_objects",
     "broadcast_array",
-    "collective_bytes",
+    "record_collectives",
 ]
 
-# Bytes this rank received through the step's all-gathers, reduce-scatters
-# and all-reduces so far (setup broadcasts excluded); reset it by assignment.
-collective_bytes = 0
+# The open record_collectives() lists (process-wide: the autograd engine runs
+# a card's backward on its own thread).
+_recorders: list[list] = []
+_recorders_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Yields a list that receives, in issue order, a
+    ``launch.roofline.Collective`` for every collective this process issues
+    inside the ``with`` block, from any thread.  Blocks may nest; each gets
+    every record."""
+    log: list = []
+    with _recorders_lock:
+        _recorders.append(log)
+    try:
+        yield log
+    finally:
+        with _recorders_lock:
+            del _recorders[next(i for i, r in enumerate(_recorders) if r is log)]
+
+
+def _record(kind: str, numel: int, dtype, mesh, name: str) -> None:
+    """Note one collective over mesh axis ``name`` whose ring-formula buffer
+    holds ``numel`` elements of ``dtype``."""
+    if not _recorders:
+        return
+    from repro_torch.launch.roofline import Collective
+
+    rec = Collective.of(kind, numel, dtype, dist.get_process_group_ranks(mesh.get_group(name)))
+    with _recorders_lock:
+        for log in _recorders:
+            log.append(rec)
 
 
 class PartitionSpec(tuple):
@@ -228,12 +267,13 @@ def logical_to_sharding(
 def mesh_device(mesh, requested: str | torch.device = "cuda") -> torch.device:
     """The device this rank computes on under ``mesh``.
 
-    A CUDA mesh uses the rank's current card and needs the NCCL backend; a
-    CPU mesh uses the CPU.  A ``requested`` device of the other kind, or a
+    A CUDA mesh uses the rank's current card and needs the NCCL backend (or,
+    under a ``FakeTensorMode``, the fake one of ``launch.mesh.fake_world``);
+    a CPU mesh uses the CPU.  A ``requested`` device of the other kind, or a
     CUDA index other than the current card, raises ``ValueError``: the mesh
     never moves a scan to another device or backend.
     """
-    from repro_torch.runtime.device import resolve_device
+    from repro_torch.runtime.device import fake_mode_active, resolve_device
 
     check_mesh(mesh)
     want = torch.device(requested)
@@ -251,9 +291,10 @@ def mesh_device(mesh, requested: str | torch.device = "cuda") -> torch.device:
             f"device={str(requested)!r} but this rank's current card is {dev}; "
             "call torch.cuda.set_device before building the mesh"
         )
+    fake = fake_mode_active()
     for name in mesh_axes(mesh):
         backend = str(dist.get_backend(mesh.get_group(name)))
-        if "nccl" not in backend:
+        if "nccl" not in backend and not (fake and backend == "fake"):
             raise ValueError(
                 f"a CUDA mesh needs the nccl backend; axis {name!r} runs on {backend!r}"
             )
@@ -293,10 +334,12 @@ def axis_index(mesh, names) -> int:
 
 
 def local_device(mesh) -> torch.device:
-    """This rank's device under ``mesh``: its current card on a CUDA mesh,
-    the CPU on a CPU mesh."""
+    """This rank's device under ``mesh``: its current card on a CUDA mesh
+    (a fake card under a ``FakeTensorMode``), the CPU on a CPU mesh."""
+    from repro_torch.runtime.device import fake_mode_active
+
     if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cuda", 0 if fake_mode_active() else torch.cuda.current_device())
     return torch.device("cpu")
 
 
@@ -324,7 +367,6 @@ def shard_local(x: torch.Tensor, mesh, spec) -> torch.Tensor:
 def _gather_cat(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
     """``all_gather`` over one mesh axis, concatenated along ``dim`` in
     coordinate order."""
-    global collective_bytes
     n = axis_size(mesh, name)
     if n == 1:
         return x
@@ -332,7 +374,7 @@ def _gather_cat(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
     src = (x.to(torch.uint8) if is_bool else x).contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=mesh.get_group(name))
-    collective_bytes += (n - 1) * src.numel() * src.element_size()
+    _record("all-gather", n * src.numel(), src.dtype, mesh, name)
     out = torch.cat(parts, dim=dim)
     return out.to(torch.bool) if is_bool else out
 
@@ -379,22 +421,19 @@ def _reduce_scatter(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
     """Sum of every rank's ``x`` over one mesh axis, this rank's block of
     it along ``dim`` (``reduce_scatter_tensor``; the order of the adds is
     the library's)."""
-    global collective_bytes
     n = axis_size(mesh, name)
     src = x.movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype, device=src.device)
     reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
     reduce_scatter(out, src, group=mesh.get_group(name))
-    collective_bytes += (n - 1) * out.numel() * out.element_size()
+    _record("reduce-scatter", src.numel(), src.dtype, mesh, name)
     return out.movedim(0, dim)
 
 
 def _all_reduce(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
-    global collective_bytes
-    n = axis_size(mesh, name)
     out = x.contiguous().clone()
     dist.all_reduce(out, group=mesh.get_group(name))
-    collective_bytes += 2 * (n - 1) * out.numel() * out.element_size() // n
+    _record("all-reduce", out.numel(), out.dtype, mesh, name)
     return out
 
 
@@ -460,13 +499,11 @@ def gather_block(block: torch.Tensor, mesh, spec, keep: tuple[str, ...] = ()) ->
 
 
 def _reduce(x: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
-    global collective_bytes
-    n = axis_size(mesh, axis)
-    if n == 1:
+    if axis_size(mesh, axis) == 1:
         return x
     out = x if x.is_contiguous() else x.contiguous()
     dist.all_reduce(out, op=op, group=mesh.get_group(axis))
-    collective_bytes += 2 * (n - 1) * out.numel() * out.element_size() // n
+    _record("all-reduce", out.numel(), out.dtype, mesh, axis)
     return out
 
 

@@ -316,7 +316,7 @@ def to_blocks(model, mesh, specs: dict):
         owner = model.get_submodule(path) if path else model
         full = owner._parameters[leaf]
         block = sh.shard_local(full.detach(), mesh, specs[name])
-        if block.untyped_storage().data_ptr() == full.untyped_storage().data_ptr():
+        if block.untyped_storage().nbytes() > block.numel() * block.element_size():
             block = block.clone()
         owner._parameters[leaf] = torch.nn.Parameter(block, requires_grad=full.requires_grad)
         del full, block
