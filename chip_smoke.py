@@ -259,32 +259,40 @@ peak within 10%, collective bytes a step exact.
     python3 chip_smoke.py --only build,lm_serve_mesh
 
 runs the LM serve steps on a mesh, one process per card over NCCL (fewer
-cards: an error), with attention, the MLP, the embedding and the head
-split over "model".  (a) Parity: gemma2-9b, qwen1.5-32b and
-recurrentgemma-2b at ``reduced()`` in float32, B=4, a 24-token prompt into
+cards: an error), with every layer split over "model" (attention, the MLP,
+the embedding and the head, the rg-lru and rwkv6 mixes, the MoE's router
+and experts).  (a) Parity: gemma2-9b, qwen1.5-32b, recurrentgemma-2b,
+rwkv6-3b (its one head, and 4 heads of 16), granite-moe-1b-a400m and
+arctic-480b at ``reduced()`` in float32, B=4, a 24-token prompt into
 32-slot caches and 8 decode steps, on (2, 2) and (1, 4) against
 ``mesh=None`` on ``cuda:0`` from the same weights: logits of every step and
 the gathered caches within 1e-4 * max |ref|, every rank's gathered results
-the same bits; then gemma2-9b and qwen1.5-32b at full width, one repeat of
-the pattern, in bfloat16, B=4, a 512-token prompt into 544-slot caches and
-8 decode steps, on (1, 4) against ``mesh=None`` on ``cuda:0`` from the same
+the same bits; then the same six archs at full width, one repeat of the
+pattern, in bfloat16, B=4, a 512-token prompt into 544-slot caches and 8
+decode steps, on (1, 4) against ``mesh=None`` on ``cuda:0`` from the same
 weights: the mesh's logits and caches no further from the same weights
 served in float32 than 4x ``mesh=None``'s bfloat16 error (a wrong split is
-off by the size of the values), positions equal.  (b) qwen1.5-32b whole in bfloat16 on (1, 4), weights drawn
-a parameter at a time (``models.convert.init_blocks``): 8 requests of
-4,096 prompt tokens into 4,160-slot caches, then 64 greedy decode steps;
+off by the size of the values), positions equal; for the MoE archs on the
+rows whose experts the three runs chose alike (rounding flips near ties),
+at least half of them.  (b) Served whole in
+bfloat16 on (1, 4), weights drawn a parameter at a time
+(``models.convert.init_blocks``): qwen1.5-32b, 8 requests of 4,096 prompt
+tokens into 4,160-slot caches, then 64 greedy decode steps;
+recurrentgemma-2b, rwkv6-3b and granite-moe-1b-a400m, 8 requests of 256
+prompt tokens into 288-slot caches, then 32 greedy decode steps.  For each:
 ``prefill_s``, decode ms per step (median, p95) and tokens/s, each rank's
 bytes at rest (weights, caches) and at peak (under 80 GB), the bytes each
 rank moved through collectives per prefill and per decode step, the
-kernels per decode step and one more prefill under ``torch.profiler``,
-and each time beside its bound (prefill: ``launch.roofline.model_flops`` at 4 x 989 TFLOP/s;
-decode: a rank's weights and caches read once at 3.35 TB/s); beside them,
-rank 0's dry run of the prefill and of a decode step on a fake world of 4:
-rest bytes within 1%, peak within 10%, collective bytes exact.  (c) Every
-rank's launch counts of the repo's kernels read 0.
+kernels per decode step and one more prefill under ``torch.profiler``, and
+each time beside its bound (prefill: ``launch.roofline.model_flops`` at 4 x
+989 TFLOP/s; decode: a rank's weights and caches read once at 3.35 TB/s);
+beside them, rank 0's dry run of the prefill and of a decode step on a fake
+world of 4: rest bytes within 1%, peak within 10%, collective bytes exact.
+(c) Every rank's launch counts of the repo's kernels read 0.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -295,6 +303,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -423,19 +432,35 @@ LM_MESH = dict(arch="gemma2-9b", batch=8, seq=512, seed=2026, loss_rel=1e-5, gra
 # through the mesh arms bitwise equal to mesh=None.  lm_serve_mesh (4
 # cards): (a) parity at reduced() in float32 on (2, 2) and (1, 4) against
 # mesh=None on cuda:0, and at full width (one repeat of the pattern) in
-# bfloat16 on (1, 4), held to mesh=None's own bfloat16 error; (b) qwen1.5-32b whole in bfloat16 on (1, 4)
-# (src/repro/configs/qwen15_32b.py, 70.4 GB of weights: more than one
-# card), weights drawn a parameter at a time: 8 requests of 4,096 prompt
-# tokens into caches of 4,160 positions, then 64 greedy decode steps.
+# bfloat16 on (1, 4), held to mesh=None's own bfloat16 error; (b) served
+# whole in bfloat16 on (1, 4), weights drawn a parameter at a time:
+# qwen1.5-32b (src/repro/configs/qwen15_32b.py, 70.4 GB of weights: more
+# than one card), 8 requests of 4,096 prompt tokens into caches of 4,160
+# positions, then 64 greedy decode steps; recurrentgemma-2b, rwkv6-3b and
+# granite-moe-1b-a400m, 8 requests of 256 prompt tokens, 32 decode steps.
 LM_SERVE_MESH_ONE = dict(arch="gemma2-9b", batch=4, prompt=512, capacity=544, steps=8,
                          seed=2026)
-LM_SERVE_MESH = dict(archs=("gemma2-9b", "qwen1.5-32b", "recurrentgemma-2b"),
+# The split recurrent and expert layers (rg-lru, rwkv6, the MoE) join (a)
+# in float32 (rwkv6 also with heads of 16, so its 4 reduced() heads split)
+# and at full width, and are served whole in (b) with short prompts (their
+# recurrences loop over time steps).
+LM_SERVE_MESH = dict(archs=("gemma2-9b", "qwen1.5-32b", "recurrentgemma-2b", "rwkv6-3b",
+                            "rwkv6-3b-4h", "granite-moe-1b-a400m", "arctic-480b"),
                      shapes=((2, 2), (1, 4)), batch=4, prompt=24, capacity=32, steps=8,
                      seed=2026, rel=1e-4,
-                     full=dict(archs=("gemma2-9b", "qwen1.5-32b"), shape=(1, 4), batch=4,
-                               prompt=512, capacity=544, steps=8, factor=4.0),
-                     whole=dict(arch="qwen1.5-32b", shape=(1, 4), batch=8, prompt=4096,
-                                capacity=4160, steps=64, peak_limit=80e9))
+                     full=dict(archs=("gemma2-9b", "qwen1.5-32b", "recurrentgemma-2b",
+                                      "rwkv6-3b", "granite-moe-1b-a400m", "arctic-480b"),
+                               shape=(1, 4), batch=4, prompt=512, capacity=544, steps=8,
+                               factor=4.0),
+                     whole=dict(shape=(1, 4), peak_limit=80e9, cells=(
+                         dict(arch="qwen1.5-32b", batch=8, prompt=4096, capacity=4160, steps=64),
+                         dict(arch="recurrentgemma-2b", batch=8, prompt=256, capacity=288,
+                              steps=32),
+                         dict(arch="rwkv6-3b", batch=8, prompt=256, capacity=288, steps=32),
+                         dict(arch="granite-moe-1b-a400m", batch=8, prompt=256, capacity=288,
+                              steps=32))))
+# reduced() variants of (a): (arch, config changes)
+LM_VARIANTS = {"rwkv6-3b-4h": ("rwkv6-3b", dict(rwkv_head_dim=16))}
 # The dry run (launch/dryrun.py) against the card, each cell traced as rank 0
 # of a fake world beside its measurement.  dryrun (one card): (a) the
 # paper's fused cell, one batch of 8,192 markers x 23,000 samples x 20,480
@@ -2226,8 +2251,13 @@ def _mesh_rank(rank: int, world: int, store: str, shape, jobs, tmp: str,
         out = globals()[body](mesh, rank, jobs, tmp)
         with open(os.path.join(tmp, f"mesh_rank{rank}.json"), "w") as f:
             json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # the other ranks may wait in a collective this rank never joins,
+        # and destroy_process_group would wait with them: leave at once
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
 
 
 def _spawn_world(tmp: str, shape, jobs, body: str = "_mesh_jobs") -> list:
@@ -3710,11 +3740,196 @@ def _greedy(logits, mesh):
     return pairs[best, torch.arange(pairs.shape[1], device=best.device), 1].to(torch.int32)
 
 
+def _reduced_config(label: str):
+    """The float32 ``reduced()`` config of an arch or of an ``LM_VARIANTS``
+    label."""
+    arch, changes = LM_VARIANTS.get(label, (label, {}))
+    return dataclasses.replace(_lm_config(arch).reduced(), dtype="float32", **changes)
+
+
+@contextlib.contextmanager
+def _in_float32(model):
+    """``model``'s parameters in float32 for the duration, and back to their
+    own dtypes after (bfloat16 -> float32 -> bfloat16 is exact), each cast
+    on the host with its card copy freed first: arctic's layer is 28 GB in
+    bfloat16 and 56 GB in float32, and a card holding one 8.9 GB expert
+    weight in both dtypes at once peaked at 65 GB, which a rank beside its
+    NCCL buffers does not have."""
+    import torch
+
+    def cast(p, dtype):
+        host, dev = p.data.cpu(), p.device
+        p.data = torch.empty(0, dtype=dtype, device=dev)
+        p.data = host.to(dtype).to(dev)
+
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
+    for p in model.parameters():
+        cast(p, torch.float32)
+    try:
+        yield model
+    finally:
+        for n, p in model.named_parameters():
+            cast(p, dtypes[n])
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Inside, each call of the MoE router appends to the yielded list each
+    token's experts, one column a round (T, top_k), -1 where dropped."""
+    import torch
+
+    import repro_torch.models.moe as moe_mod
+
+    log: list = []
+    route = moe_mod.moe_route
+
+    def recorded(*args, **kwargs):
+        routes, frac = route(*args, **kwargs)
+        log.append(torch.stack([torch.where(r.keep, r.dest_e, -1) for r in routes], -1).cpu())
+        return routes, frac
+
+    moe_mod.moe_route = recorded
+    try:
+        yield log
+    finally:
+        moe_mod.moe_route = route
+
+
+def _same_routes(logs: list, b: int, s: int, steps: int) -> tuple[list, "torch.Tensor"]:
+    """Which rows of the prefill (B rows of ``s`` tokens) and of each of
+    ``steps`` decode steps every run of ``logs`` (each a
+    ``_recorded_routes`` list) computed with the same experts: (for each
+    call, the rows (B,) bool whose output saw the same experts; the rows
+    whose caches did, after the last call).  A MoE layer below the last
+    feeds the caches of the layers above it, so a token's flip there marks
+    its row for every later call; the last MoE layer feeds only the row's
+    output at that call, through its last token.  A row whose experts
+    differ computes another function: a flip of a near tie, which rounding
+    decides, not an error of the split."""
+    import torch
+
+    per = len(logs[0]) // (1 + steps)
+    cached = torch.ones(b, dtype=torch.bool)
+    rows = []
+    for call in range(1 + steps):
+        n = s if call == 0 else 1
+        out = cached.clone()
+        for layer in range(per):
+            first = logs[0][call * per + layer].view(b, n, -1)
+            for other in logs[1:]:
+                same = other[call * per + layer].view(b, n, -1) == first
+                if layer == per - 1:
+                    out &= same[:, -1].all(-1)
+                else:
+                    cached &= same.flatten(1).all(1)
+                    out &= cached
+        rows.append(out)
+    return rows, cached
+
+
+def _rows_rel(got, want, rows) -> float:
+    """max |got - want| over the rows ``rows`` of the batch dim (dim 0) /
+    max |want| over every row."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got[rows] - want[rows]).abs().max()) / scale if rows.any() else 0.0
+
+
+def _whole_logits(logits: list, cfg, m, batch: int) -> list:
+    """Each step's logits whole, from this rank's block of the serve steps'
+    logits layout (the vocab on "model" only where it divides)."""
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.train import partition
+
+    spec = partition.divisible_sharding(m, sh.P(sh.batch_axes(m), "model"),
+                                        (batch, cfg.vocab)).spec
+    return [sh.gather_full(x, m, spec) for x in logits]
+
+
+def _serve_whole(m, w: dict, seed: int) -> dict:
+    """One (b) cell on this rank: ``w['arch']`` whole in bfloat16 on mesh
+    ``m``, weights drawn a parameter at a time; a prefill of ``w['batch']``
+    prompts of ``w['prompt']`` tokens, then ``w['steps'] - 1`` greedy decode
+    steps: times, memory and collective bytes of this rank."""
+    import gc
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import describe
+    from repro_torch.launch.roofline import HW, model_flops
+    from repro_torch.models import convert
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.train import build_decode_step, build_prefill_step
+    from repro_torch.train.train_step import param_specs
+
+    dev = sh.local_device(m)
+    cfg = _lm_config(w["arch"])
+    prompt, _ = _serve_inputs(cfg, w["batch"], w["prompt"], 1, seed)
+    shape = ShapeConfig("serve", seq_len=w["capacity"], global_batch=w["batch"], kind="prefill")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _timed(lambda: convert.init_blocks(cfg, seed, mesh=m,
+                                                          specs=param_specs(cfg, m)))
+    weights = torch.cuda.memory_allocated() - base
+    init_peak = torch.cuda.max_memory_allocated() - base
+    prefill, decode = build_prefill_step(cfg, shape, mesh=m), build_decode_step(cfg, shape, mesh=m)
+    with sh.record_collectives() as colls:
+        (logits, caches), prefill_s = _timed(lambda: prefill(model, prompt))
+    prefill_bytes = sum(c.wire_bytes for c in colls)
+    cache_bytes = sum(t.numel() * t.element_size() for t in _cache_tensors(caches))
+    finite = bool(torch.isfinite(logits).all())
+    token = _greedy(logits, m)
+    tokens = [token]
+    step_s, step_bytes = [], []
+    for i in range(w["steps"] - 1):
+        pos = torch.full((w["batch"],), w["prompt"] + i, dtype=torch.int32, device=dev)
+        with sh.record_collectives() as colls:
+            (logits, caches), dt = _timed(lambda: decode(model, token, pos, caches))
+        step_bytes.append(sum(c.wire_bytes for c in colls))
+        step_s.append(dt)
+        finite = finite and bool(torch.isfinite(logits).all())
+        token = _greedy(logits, m)
+        tokens.append(token)
+    pos = torch.full((w["batch"],), w["prompt"] + w["steps"] - 1, dtype=torch.int32, device=dev)
+    profile = _device_profile(lambda: decode(model, token, pos, caches), 1, top=8)
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = finite and all(bool(torch.isfinite(t.float()).all())
+                            for t in _cache_tensors(caches) if t.is_floating_point())
+    del caches, logits
+    torch.cuda.empty_cache()
+    prefill_profile = _device_profile(lambda: prefill(model, prompt), 1, top=8)
+    del model
+    torch.cuda.empty_cache()
+    warm = sorted(1e3 * t for t in step_s[1:])
+    flops = model_flops(cfg, ShapeConfig("prefill", w["prompt"], w["batch"], "prefill"))
+    world = sh.axis_size(m, ("data", "model"))
+    row = {
+        "arch": w["arch"], "n_layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+        "mesh": describe(m), "batch": w["batch"], "prompt": w["prompt"],
+        "capacity": w["capacity"], "decode_steps": w["steps"], "init_s": init_s,
+        "weights_bytes": weights, "cache_bytes": cache_bytes, "init_peak_bytes": init_peak,
+        "peak_bytes": peak, "prefill_s": prefill_s,
+        "prefill_bound_s": flops / (world * HW().peak_flops), "prefill_flops": flops,
+        "prefill_collective_bytes": prefill_bytes, "decode_step_ms": [1e3 * t for t in step_s],
+        "decode_step_ms_median": statistics.median(warm),
+        "decode_step_ms_p95": warm[min(len(warm) - 1, math.ceil(0.95 * len(warm)) - 1)],
+        "decode_bound_ms": 1e3 * (weights + cache_bytes) / HBM_BYTES_S,
+        "decode_collective_bytes_per_step": statistics.median(step_bytes),
+        "decode_collective_bytes_set": sorted(set(step_bytes)),
+        "decode_profile": profile, "prefill_profile": prefill_profile, "finite": finite,
+        "tokens_digest": hashlib.sha256(torch.stack(tokens).cpu().numpy().tobytes()).hexdigest(),
+    }
+    row["decode_tokens_per_s"] = w["batch"] / (row["decode_step_ms_median"] / 1e3)
+    return row
+
+
 def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
     """lm_serve_mesh on one of 4 ranks (module docstring: parts (a) and
     (b))."""
-    import copy
-    import gc
     import hashlib
 
     import torch
@@ -3722,11 +3937,9 @@ def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import describe, make_mesh
-    from repro_torch.launch.roofline import HW, model_flops
     from repro_torch.models import api as M
     from repro_torch.models import convert
     from repro_torch.runtime import sharding as sh
-    from repro_torch.train import build_decode_step, build_prefill_step
     from repro_torch.train.serve_step import cache_specs
     from repro_torch.train.train_step import param_specs, to_blocks
 
@@ -3737,7 +3950,7 @@ def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
 
     # (a) reduced(), float32, against mesh=None on cuda:0
     for arch in p["archs"]:
-        cfg = dataclasses.replace(_lm_config(arch).reduced(), dtype="float32")
+        cfg = _reduced_config(arch)
         prompt, cont = _serve_inputs(cfg, p["batch"], p["prompt"], p["steps"], p["seed"])
         make = lambda: M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(  # noqa: E731
             p["seed"]), device=dev, max_positions=64)
@@ -3747,7 +3960,7 @@ def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
         for label, m in meshes.items():
             model = to_blocks(make(), m, param_specs(cfg, m))
             logits, caches = _serve_on(cfg, model, m, prompt, cont, p["capacity"])
-            logits = [sh.gather_full(x, m, sh.P(sh.batch_axes(m), "model")) for x in logits]
+            logits = _whole_logits(logits, cfg, m, p["batch"])
             whole = _cache_tensors(convert.caches_from_blocks(caches, cache_specs(cfg, shape, m), m))
             digest = hashlib.sha256()
             for t in logits + whole:
@@ -3781,20 +3994,29 @@ def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
         model = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(p["seed"]),
                              device=dev)
         if rank == 0:
-            exact = _serve_on(dataclasses.replace(cfg, dtype="float32"),
-                              copy.deepcopy(model).float(), None, prompt, cont, f["capacity"])
-            plain = _serve_on(cfg, model, None, prompt, cont, f["capacity"])
+            with _recorded_routes() as plain_routes:
+                plain = _serve_on(cfg, model, None, prompt, cont, f["capacity"])
+            with _in_float32(model), _recorded_routes() as exact_routes:
+                exact = _serve_on(dataclasses.replace(cfg, dtype="float32"), model, None, prompt,
+                                  cont, f["capacity"])
         to_blocks(model, m, param_specs(cfg, m))
-        logits, caches = _serve_on(cfg, model, m, prompt, cont, f["capacity"])
-        logits = [sh.gather_full(x, m, sh.P(sh.batch_axes(m), "model")) for x in logits]
+        with _recorded_routes() as mesh_routes:
+            logits, caches = _serve_on(cfg, model, m, prompt, cont, f["capacity"])
+        logits = _whole_logits(logits, cfg, m, f["batch"])
         whole = _cache_tensors(convert.caches_from_blocks(caches, cache_specs(cfg, shape, m), m))
         del model, caches
         if rank == 0:
             ref = _cache_tensors(exact[1])
+            # rows compared: those whose experts all three runs chose alike;
+            # the logits' vocab columns only (the pad columns are -inf)
+            rows, cached = _same_routes([exact_routes, plain_routes, mesh_routes], f["batch"],
+                                        f["prompt"], f["steps"])
+            v = cfg.vocab
 
             def errs(got_logits, got_caches):
-                return (max(_max_rel(g, w) for g, w in zip(got_logits, exact[0])),
-                        max(_max_rel(g, w) for g, w in zip(got_caches, ref)
+                return (max(_rows_rel(g[:, :v], w[:, :v], r)
+                            for g, w, r in zip(got_logits, exact[0], rows)),
+                        max(_rows_rel(g, w, cached) for g, w in zip(got_caches, ref)
                             if w.dtype != torch.int32))
 
             mesh_err, plain_err = errs(logits, whole), errs(plain[0], _cache_tensors(plain[1]))
@@ -3804,8 +4026,11 @@ def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
                 "logits_max_rel_err": mesh_err[0], "caches_max_rel_err": mesh_err[1],
                 "plain_logits_max_rel_err": plain_err[0],
                 "plain_caches_max_rel_err": plain_err[1], "factor": f["factor"],
+                "rows_compared": [int(r.sum()) for r in rows],
                 "within": (mesh_err[0] <= f["factor"] * plain_err[0]
-                           and mesh_err[1] <= f["factor"] * plain_err[1]),
+                           and mesh_err[1] <= f["factor"] * plain_err[1]
+                           and 2 * sum(int(r.sum()) for r in rows) >= f["batch"] * len(rows)
+                           and 2 * int(cached.sum()) >= f["batch"]),
                 "positions_equal": len(whole) == len(ref) and all(
                     torch.equal(g, w) for g, w in zip(whole, ref) if w.dtype == torch.int32)}
             del exact, plain
@@ -3813,71 +4038,61 @@ def _lm_serve_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
         torch.cuda.empty_cache()
     dist.barrier()
 
-    # (b) qwen1.5-32b whole, bfloat16, on (1, 4)
+    # (b) served whole, bfloat16, on (1, 4)
     w = p["whole"]
     m = meshes["x".join(map(str, w["shape"]))]
-    cfg = _lm_config(w["arch"])
-    prompt, _ = _serve_inputs(cfg, w["batch"], w["prompt"], 1, p["seed"])
-    shape = ShapeConfig("serve", seq_len=w["capacity"], global_batch=w["batch"], kind="prefill")
-    gc.collect()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    model, init_s = _timed(lambda: convert.init_blocks(cfg, p["seed"], mesh=m,
-                                                          specs=param_specs(cfg, m)))
-    weights = torch.cuda.memory_allocated() - base
-    init_peak = torch.cuda.max_memory_allocated() - base
-    prefill, decode = build_prefill_step(cfg, shape, mesh=m), build_decode_step(cfg, shape, mesh=m)
-    with sh.record_collectives() as colls:
-        (logits, caches), prefill_s = _timed(lambda: prefill(model, prompt))
-    prefill_bytes = sum(c.wire_bytes for c in colls)
-    cache_bytes = sum(t.numel() * t.element_size() for t in _cache_tensors(caches))
-    finite = bool(torch.isfinite(logits).all())
-    token = _greedy(logits, m)
-    tokens = [token]
-    step_s, step_bytes = [], []
-    for i in range(w["steps"] - 1):
-        pos = torch.full((w["batch"],), w["prompt"] + i, dtype=torch.int32, device=dev)
-        with sh.record_collectives() as colls:
-            (logits, caches), dt = _timed(lambda: decode(model, token, pos, caches))
-        step_bytes.append(sum(c.wire_bytes for c in colls))
-        step_s.append(dt)
-        finite = finite and bool(torch.isfinite(logits).all())
-        token = _greedy(logits, m)
-        tokens.append(token)
-    pos = torch.full((w["batch"],), w["prompt"] + w["steps"] - 1, dtype=torch.int32, device=dev)
-    profile = _device_profile(lambda: decode(model, token, pos, caches), 1, top=8)
-    peak = torch.cuda.max_memory_allocated() - base
-    finite = finite and all(bool(torch.isfinite(t.float()).all())
-                            for t in _cache_tensors(caches) if t.is_floating_point())
-    del caches, logits
-    torch.cuda.empty_cache()
-    prefill_profile = _device_profile(lambda: prefill(model, prompt), 1, top=8)
-    launches = read_launches()
-    del model
-    torch.cuda.empty_cache()
-    warm = sorted(1e3 * t for t in step_s[1:])
-    flops = model_flops(cfg, ShapeConfig("prefill", w["prompt"], w["batch"], "prefill"))
-    world = sh.axis_size(m, ("data", "model"))
-    out["whole"] = {
-        "arch": w["arch"], "n_layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
-        "mesh": describe(m), "batch": w["batch"], "prompt": w["prompt"],
-        "capacity": w["capacity"], "decode_steps": w["steps"], "init_s": init_s,
-        "weights_bytes": weights, "cache_bytes": cache_bytes, "init_peak_bytes": init_peak,
-        "peak_bytes": peak, "prefill_s": prefill_s,
-        "prefill_bound_s": flops / (world * HW().peak_flops), "prefill_flops": flops,
-        "prefill_collective_bytes": prefill_bytes, "decode_step_ms": [1e3 * t for t in step_s],
-        "decode_step_ms_median": statistics.median(warm),
-        "decode_step_ms_p95": warm[min(len(warm) - 1, math.ceil(0.95 * len(warm)) - 1)],
-        "decode_bound_ms": 1e3 * (weights + cache_bytes) / HBM_BYTES_S,
-        "decode_collective_bytes_per_step": statistics.median(step_bytes),
-        "decode_collective_bytes_set": sorted(set(step_bytes)),
-        "decode_profile": profile, "prefill_profile": prefill_profile, "finite": finite,
-        "tokens_digest": hashlib.sha256(torch.stack(tokens).cpu().numpy().tobytes()).hexdigest(),
-    }
-    out["whole"]["decode_tokens_per_s"] = w["batch"] / (out["whole"]["decode_step_ms_median"] / 1e3)
-    out["launches"] = launches
+    out["whole"] = {c["arch"]: _serve_whole(m, c, p["seed"]) for c in w["cells"]}
+    out["launches"] = read_launches()
     return out
+
+
+def _check_lm_serve_mesh(p: dict, ranks: list, predicted: dict) -> dict:
+    """lm_serve_mesh's checks (module docstring) on every rank's results;
+    returns each (b) cell's row with its dry run beside it."""
+    r0 = ranks[0]
+    w = p["whole"]
+    for label, row in r0["parity"].items():
+        if "factor" in row:       # full width, bfloat16
+            check(row["within"] and row["positions_equal"], f"lm_serve_mesh parity {label}: {row}")
+            continue
+        check(row["logits_max_rel_err"] <= p["rel"] and row["caches_max_rel_err"] <= p["rel"]
+              and row["positions_equal"], f"lm_serve_mesh parity {label}: {row}")
+        check(all(r["parity"][label]["digest"] == row["digest"] for r in ranks),
+              f"lm_serve_mesh parity {label}: the ranks' gathered results differ")
+    for r in ranks:
+        check(not any(r["launches"].values()), f"lm_serve_mesh: kernels launched {r['launches']}")
+    served = {}
+    for c in w["cells"]:
+        arch = c["arch"]
+        whole = [r["whole"][arch] for r in ranks]
+        check(all(x["finite"] for x in whole), f"lm_serve_mesh {arch}: non-finite logits or caches")
+        check(len({x["tokens_digest"] for x in whole}) == 1,
+              f"lm_serve_mesh {arch}: the ranks' greedy tokens differ")
+        peaks = [x["peak_bytes"] for x in whole]
+        check(max(peaks) < w["peak_limit"], f"lm_serve_mesh {arch}: per-rank peaks {peaks}")
+        w0 = whole[0]
+        pf, dc = predicted[(arch, "prefill")], predicted[(arch, "decode")]
+        check(len(w0["decode_collective_bytes_set"]) == 1,
+              f"lm_serve_mesh {arch}: decode steps moved different bytes "
+              f"{w0['decode_collective_bytes_set']}")
+        row = {**w0, **{f"{k}_per_rank": [x[k] for x in whole] for k in
+                        ("weights_bytes", "cache_bytes", "init_peak_bytes", "peak_bytes",
+                         "prefill_s", "decode_step_ms_median", "prefill_collective_bytes",
+                         "decode_collective_bytes_per_step")}}
+        row["dry_run"] = {
+            "rest_and_peak": _held(f"lm_serve_mesh {arch} whole",
+                                   {"argument_bytes": w0["weights_bytes"] + w0["cache_bytes"],
+                                    "peak_bytes": w0["peak_bytes"]},
+                                   {"argument_bytes": dc["argument_bytes"],
+                                    "peak_bytes": max(pf["peak_bytes"], dc["peak_bytes"])}),
+            "prefill": _held(f"lm_serve_mesh {arch} prefill",
+                             {"collective_bytes": w0["prefill_collective_bytes"]}, pf),
+            "decode": _held(f"lm_serve_mesh {arch} decode",
+                            {"collective_bytes": w0["decode_collective_bytes_set"][0]}, dc)}
+        row["prefill_share_of_bound"] = w0["prefill_bound_s"] / w0["prefill_s"]
+        row["decode_share_of_bound"] = w0["decode_bound_ms"] / w0["decode_step_ms_median"]
+        served[arch] = row
+    return served
 
 
 def phase_lm_serve_mesh() -> dict:
@@ -3890,11 +4105,14 @@ def phase_lm_serve_mesh() -> dict:
     check(n >= 4, f"lm_serve_mesh needs 4 cards, found {n}")
     p = LM_SERVE_MESH
     w = p["whole"]
-    cell = dict(arch=w["arch"], cfg=_lm_config(w["arch"]), mesh=w["shape"])
-    predictions = _Predictions({
-        "prefill": dict(cell, shape=("serve", w["capacity"], w["batch"], "prefill"),
-                        prompt=w["prompt"]),
-        "decode": dict(cell, shape=("serve", w["capacity"], w["batch"], "decode"))})
+    cells = {}
+    for c in w["cells"]:
+        cell = dict(arch=c["arch"], cfg=_lm_config(c["arch"]), mesh=w["shape"])
+        cells[(c["arch"], "prefill")] = dict(cell, prompt=c["prompt"], shape=(
+            "serve", c["capacity"], c["batch"], "prefill"))
+        cells[(c["arch"], "decode")] = dict(cell, shape=("serve", c["capacity"], c["batch"],
+                                                         "decode"))
+    predictions = _Predictions(cells)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_serve_mesh_")
     try:
         ranks = _spawn_world(tmp, (2, 2), p, body="_lm_serve_mesh_rank")
@@ -3903,47 +4121,19 @@ def phase_lm_serve_mesh() -> dict:
         predictions.close()
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = ranks[0]
-    for label, row in r0["parity"].items():
-        if "factor" in row:       # full width, bfloat16
-            check(row["within"] and row["positions_equal"], f"lm_serve_mesh parity {label}: {row}")
-            continue
-        check(row["logits_max_rel_err"] <= p["rel"] and row["caches_max_rel_err"] <= p["rel"]
-              and row["positions_equal"], f"lm_serve_mesh parity {label}: {row}")
-        check(all(r["parity"][label]["digest"] == row["digest"] for r in ranks),
-              f"lm_serve_mesh parity {label}: the ranks' gathered results differ")
-    whole = [r["whole"] for r in ranks]
-    check(all(x["finite"] for x in whole), "lm_serve_mesh: non-finite logits or caches")
-    check(len({x["tokens_digest"] for x in whole}) == 1,
-          "lm_serve_mesh: the ranks' greedy tokens differ")
-    peaks = [x["peak_bytes"] for x in whole]
-    check(max(peaks) < p["whole"]["peak_limit"], f"lm_serve_mesh: per-rank peaks {peaks}")
-    for r in ranks:
-        check(not any(r["launches"].values()), f"lm_serve_mesh: kernels launched {r['launches']}")
-    w0 = whole[0]
-    pf, dc = predicted["prefill"], predicted["decode"]
-    check(len(w0["decode_collective_bytes_set"]) == 1,
-          f"lm_serve_mesh: decode steps moved different bytes {w0['decode_collective_bytes_set']}")
-    dry_run = {
-        "rest_and_peak": _held("lm_serve_mesh whole",
-                               {"argument_bytes": w0["weights_bytes"] + w0["cache_bytes"],
-                                "peak_bytes": w0["peak_bytes"]},
-                               {"argument_bytes": dc["argument_bytes"],
-                                "peak_bytes": max(pf["peak_bytes"], dc["peak_bytes"])}),
-        "prefill": _held("lm_serve_mesh prefill",
-                         {"collective_bytes": w0["prefill_collective_bytes"]}, pf),
-        "decode": _held("lm_serve_mesh decode",
-                        {"collective_bytes": w0["decode_collective_bytes_set"][0]}, dc)}
+    try:
+        served = _check_lm_serve_mesh(p, ranks, predicted)
+    except Exception:
+        # the numbers of a failed check, for its diagnosis
+        emit({"phase": "lm_serve_mesh", "failed": True, "parity": r0["parity"],
+              "whole": {a: {k: v for k, v in x.items() if "profile" not in k}
+                        for a, x in r0["whole"].items()},
+              "predicted": {" ".join(k): v for k, v in predicted.items()}})
+        raise
     row = {"phase": "lm_serve_mesh", "cards": n, "backend": "nccl", "meshes": r0["meshes"],
            "parity": {k: {kk: vv for kk, vv in v.items() if kk != "digest"}
                       for k, v in r0["parity"].items()},
-           "whole": {**w0, **{f"{k}_per_rank": [x[k] for x in whole] for k in
-                              ("weights_bytes", "cache_bytes", "init_peak_bytes", "peak_bytes",
-                               "prefill_s", "decode_step_ms_median",
-                               "prefill_collective_bytes", "decode_collective_bytes_per_step")}},
-           "launches": [r["launches"] for r in ranks], "spawn_s": r0["spawn_s"]}
-    row["whole"]["dry_run"] = dry_run
-    row["whole"]["prefill_share_of_bound"] = w0["prefill_bound_s"] / w0["prefill_s"]
-    row["whole"]["decode_share_of_bound"] = w0["decode_bound_ms"] / w0["decode_step_ms_median"]
+           "whole": served, "launches": [r["launches"] for r in ranks], "spawn_s": r0["spawn_s"]}
     emit(row)
     return row
 

@@ -18,6 +18,13 @@ on a data axis of n ranks each rank does the expert work, and holds the
 buffer, of the whole batch, n times its share.  ``moe_impl="manual"``
 routes each data row on its own and does not pay this.
 
+Under a serve scope that splits "model" (``sharding_ctx.split_of``) the
+router's columns and the experts are the rank's "model" blocks: the
+router's logits are gathered over "model" (every rank routes all E
+experts, the same routes on each), each rank dispatches only the routes
+whose expert is one of its ``E / tp`` into an ``(E / tp) * C`` buffer, and
+the ranks' combined outputs are summed over "model".
+
 ``moe_layer_manual`` (``moe_impl="manual"``) is the reference's
 expert-parallel layer: each rank of a data row routes the row's tokens
 against the full router, dispatches only to its ``E / tp`` experts with the
@@ -66,6 +73,23 @@ class Route(NamedTuple):
     dest_c: torch.Tensor   # (T,) int32
     keep: torch.Tensor     # (T,) bool
     gate: torch.Tensor     # (T,) float32
+
+
+def _router_probs(p: MoE, xt: torch.Tensor) -> torch.Tensor:
+    """Router probabilities (T, E) of tokens ``xt`` (T, d); a router split
+    on its expert columns gives this rank's logits, gathered over
+    "model"."""
+    logits = xt.float() @ p.router
+    split = S.split_of(p, "router")
+    return torch.softmax(logits if split is None else S.model_whole(logits, 1), dim=-1)
+
+
+def _local_route(r: Route, first: int, n: int) -> Route:
+    """``r`` restricted to experts ``first .. first + n - 1`` (renumbered
+    from 0); the other tokens dropped, as a capacity overflow is."""
+    mine = r.keep & (r.dest_e >= first) & (r.dest_e < first + n)
+    return Route(dest_e=torch.where(mine, r.dest_e - first, 0).to(torch.int32), dest_c=r.dest_c,
+                 keep=mine, gate=torch.where(mine, r.gate, 0.0))
 
 
 def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -169,13 +193,19 @@ def moe_layer(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, 
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)            # (T, E)
+    probs = _router_probs(p, xt)                                    # (T, E)
     shards = _token_shards()
     n_tokens = _global_tokens(t, shards)
     routes, frac_dispatched = moe_route(cfg, probs, shards)
     cap = _capacity(cfg, n_tokens)
+    experts = S.split_of(p, "w_in")
+    if experts is not None:     # this rank's experts only
+        n_local = p.w_in.shape[0]
+        routes = [_local_route(r, experts.index * n_local, n_local) for r in routes]
     slots = [r.dest_e.long() * cap + r.dest_c.long() for r in routes]
-    combined = _dispatch(e * cap, xt, routes, slots, p.w_in, p.w_gate, p.w_out)
+    combined = _dispatch(p.w_in.shape[0] * cap, xt, routes, slots, p.w_in, p.w_gate, p.w_out)
+    if experts is not None:     # summed in the activations' dtype, as the MLP's rows are
+        combined = sh.tp_sum(combined.to(x.dtype), experts.mesh)
     prob_sums = torch.sum(probs, dim=0)
     if shards is not None:
         prob_sums = sh.psum(prob_sums, *shards)
@@ -203,7 +233,7 @@ def _moe_local(cfg: ModelConfig, p: MoE, xt: torch.Tensor, mesh):
     n_local = p.w_in.shape[0]
     first = sh.axis_index(mesh, "model") * n_local
 
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)
+    probs = _router_probs(p, xt)
     # capacity against this data row's tokens (each row routes on its own)
     cap = max(4, int(moe.capacity_factor * t * moe.top_k / e) + 4)
     remaining = sh.sum_grads(probs, mesh, "model")

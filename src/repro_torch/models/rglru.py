@@ -17,6 +17,14 @@ RG-LRU cell (c = 8):
 The reference's ``lax.scan`` over time is a loop here, one step per token,
 with the state in float32.  Decode state: h (B, W) plus the conv ring (B,
 width-1, W).
+
+Under a serve scope that splits "model" (``sharding_ctx.split_of``) a rank
+computes on its blocks of the "state" channels: its columns of ``w_branch``
+(which lie in the gate half or the signal half: an all-to-all re-pairs each
+rank's channels' gate and signal), its channels of ``conv``, ``lam``,
+``b_a``, ``b_i`` and of the states, its rows of ``w_a``/``w_i`` (one
+reduce-scatter gives its columns of both gates) and of ``w_out`` (one sum
+over "model").
 """
 from __future__ import annotations
 
@@ -25,7 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding_ctx as S
 from repro_torch.models.layers import const_param, normal_param, uniform_param
+from repro_torch.runtime import sharding as sh
 
 __all__ = ["RGLRU", "init_rglru_cache", "rglru_mix"]
 
@@ -71,10 +81,52 @@ def _conv1d(p: RGLRU, u: torch.Tensor, conv_state: torch.Tensor | None):
     return out + p.conv_bias[None, None], ext[:, -(cw - 1) :]
 
 
+def _branches(p: RGLRU, x: torch.Tensor, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gate, signal) of the rank's channels (every channel without a
+    split).  ``w_branch`` is [gate | signal] cut in column blocks, so a
+    rank's columns hold other ranks' channels: each rank sends each other
+    the columns of its channels it holds (``_pairing``)."""
+    branch = x @ p.w_branch
+    cols = S.split_of(p, "w_branch")
+    if cols is None:            # whole, and so are the channels
+        return torch.chunk(branch, 2, dim=-1)
+    if S.split_of(p, "lam") is None:     # 2 * width divides "model", width does not
+        return torch.chunk(S.model_whole(branch, 2), 2, dim=-1)
+    send, recv = _pairing(width, cols.size, cols.index)
+    got = sh.tp_all_to_all([branch[..., lo:hi] for lo, hi in send], recv, cols.mesh, dim=2)
+    return torch.chunk(got, 2, dim=-1)
+
+
+def _pairing(width: int, n: int, rank: int) -> tuple[list, list]:
+    """For rank ``rank`` of ``n`` over a ``w_branch`` of 2 * ``width``
+    columns: the span (lo, hi) of its column block that each rank's
+    channels need, and the number of columns it receives from each rank.
+    A block meets at most one half of a rank's channels (the gate and the
+    signal columns of a channel lie ``width`` apart), so that is one span."""
+    block, chans = 2 * width // n, width // n
+
+    def span(src: int, dst: int) -> tuple[int, int]:
+        for start in (dst * chans, width + dst * chans):
+            lo, hi = max(start, src * block), min(start + chans, (src + 1) * block)
+            if lo < hi:
+                return lo - src * block, hi - src * block
+        return 0, 0
+
+    return [span(rank, j) for j in range(n)], [hi - lo for lo, hi in (span(i, rank)
+                                                                      for i in range(n))]
+
+
 def _gates(p: RGLRU, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    r = torch.sigmoid((u @ p.w_a).float() + p.b_a)
-    i = torch.sigmoid((u @ p.w_i).float() + p.b_i)
-    return r, i
+    rows = S.split_of(p, "w_a")
+    if rows is None:
+        r = torch.sigmoid((u @ p.w_a).float() + p.b_a)
+        i = torch.sigmoid((u @ p.w_i).float() + p.b_i)
+        return r, i
+    # u's channels are the rank's rows of w_a and w_i: partial sums, of
+    # which one reduce-scatter gives the rank's columns of both gates
+    both = sh.tp_scatter_sum(torch.stack([u @ p.w_a, u @ p.w_i], dim=2), rows.mesh, dim=3)
+    return (torch.sigmoid(both[:, :, 0].float() + p.b_a),
+            torch.sigmoid(both[:, :, 1].float() + p.b_i))
 
 
 def _lru_coeffs(p: RGLRU, r: torch.Tensor, i: torch.Tensor, u: torch.Tensor):
@@ -89,13 +141,12 @@ def rglru_mix(cfg: ModelConfig, p: RGLRU, x: torch.Tensor, cache: dict | None = 
     """Temporal mix over any sequence length; ``cache=None`` = fresh state.
     Returns (out (B,S,D), new cache)."""
     b = x.shape[0]
-    branch = x @ p.w_branch
-    gate, signal = torch.chunk(branch, 2, dim=-1)
+    gate, signal = _branches(p, x, cfg.lru_width)
     u, conv_state = _conv1d(p, signal, cache["conv"] if cache else None)
     r, i = _gates(p, u)
     a, gated_in = _lru_coeffs(p, r, i, u)
 
-    h = cache["h"] if cache else torch.zeros((b, cfg.lru_width), dtype=torch.float32, device=x.device)
+    h = cache["h"] if cache else torch.zeros((b, u.shape[-1]), dtype=torch.float32, device=x.device)
     hs = []
     for t in range(x.shape[1]):
         h = a[:, t] * h + gated_in[:, t]
@@ -103,4 +154,7 @@ def rglru_mix(cfg: ModelConfig, p: RGLRU, x: torch.Tensor, cache: dict | None = 
     h_seq = torch.stack(hs, dim=1).to(x.dtype)
     mixed = h_seq * F.gelu(gate, approximate="tanh")
     out = mixed @ p.w_out
+    split = S.split_of(p, "w_out")
+    if split is not None:
+        out = sh.tp_sum(out, split.mesh)
     return out, {"h": h, "conv": conv_state}

@@ -7,6 +7,14 @@ rank-1 outer products, one step per token (the reference's ``lax.scan``
 over time is a loop here).  Token-shift interpolation uses the Finch LoRA
 form: one fused ``d -> 5*rank`` projection, tanh, and five ``rank -> d``
 heads.
+
+Under a serve scope that splits "model" (``sharding_ctx.split_of``) the
+time mix computes the rank's heads: its blocks of ``w_r``/``w_k``/``w_v``/
+``w_g``/``decay_b`` and of the ``wkv`` state, its heads of the whole
+``decay_base``/``bonus``/``ln_x``, and ``w_o``'s rows, summed over "model";
+the channel mix its columns of ``cm_k`` and rows of ``cm_v``, summed over
+"model" before the receptance gate.  The token-shift LoRA and ``cm_r`` have
+no "model" dim: every rank computes them whole.
 """
 from __future__ import annotations
 
@@ -15,7 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding_ctx as S
 from repro_torch.models.layers import const_param, normal_param, proj_in, proj_out, rms_norm
+from repro_torch.runtime import sharding as sh
 
 __all__ = ["RWKV", "init_rwkv_cache", "rwkv_block"]
 
@@ -94,11 +104,12 @@ def _mix_targets(p: RWKV, x: torch.Tensor, x_prev: torch.Tensor) -> list[torch.T
     return outs  # order: w, k, v, r, g
 
 
-def _decay(p: RWKV, x_w: torch.Tensor) -> torch.Tensor:
+def _decay(p: RWKV, x_w: torch.Tensor, heads: int | None = None) -> torch.Tensor:
     """Data-dependent per-channel decay in (0, 1): w = exp(-exp(w0 + lora)),
-    the exponent clipped to [-10, 4]."""
+    the exponent clipped to [-10, 4]; of the rank's heads where ``heads``
+    (0, the heads dim of the whole ``decay_base``) is split."""
     t = torch.tanh(x_w @ p.decay_a)
-    core = p.decay_base[None, None] + proj_in(t, p.decay_b).float()
+    core = S.model_block(p.decay_base, heads)[None, None] + proj_in(t, p.decay_b).float()
     return torch.exp(-torch.exp(torch.clamp(core, -10.0, 4.0)))
 
 
@@ -127,21 +138,25 @@ def _group_norm(y: torch.Tensor, g: torch.Tensor, eps: float = 64e-5) -> torch.T
 
 
 def _time_mix(cfg: ModelConfig, p: RWKV, x: torch.Tensor, shift_prev, wkv_state):
-    b, _, d = x.shape
+    b = x.shape[0]
     hd = cfg.rwkv_head_dim
-    h = d // hd
+    heads = 0 if S.split_of(p, "w_r") is not None else None
     x_prev = _token_shift(x, shift_prev)
     x_w, x_k, x_v, x_r, x_g = _mix_targets(p, x, x_prev)
     r = proj_in(x_r, p.w_r)
     k = proj_in(x_k, p.w_k)
     v = proj_in(x_v, p.w_v)
     g = F.silu(proj_in(x_g, p.w_g))
-    w = _decay(p, x_w)
+    w = _decay(p, x_w, heads)
     if wkv_state is None:
-        wkv_state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-    y, wkv_state = _wkv_scan(r, k, v, w, p.bonus, wkv_state)
-    y = _group_norm(y, p.ln_x).to(x.dtype) * g
-    return proj_out(y, p.w_o), x[:, -1], wkv_state
+        wkv_state = torch.zeros((b, r.shape[2], hd, hd), dtype=torch.float32, device=x.device)
+    y, wkv_state = _wkv_scan(r, k, v, w, S.model_block(p.bonus, heads), wkv_state)
+    y = _group_norm(y, S.model_block(p.ln_x, heads)).to(x.dtype) * g
+    out = proj_out(y, p.w_o)
+    split = S.split_of(p, "w_o")
+    if split is not None:
+        out = sh.tp_sum(out, split.mesh)
+    return out, x[:, -1], wkv_state
 
 
 def _channel_mix(p: RWKV, x: torch.Tensor, shift_prev):
@@ -151,6 +166,10 @@ def _channel_mix(p: RWKV, x: torch.Tensor, shift_prev):
     x_r = x + xx * p.cm_mu_r[None, None]
     k = torch.square(torch.relu(x_k @ p.cm_k))
     kv = k @ p.cm_v
+    split = S.split_of(p, "cm_v")
+    if split is not None:
+        # cm_k by columns, cm_v by rows: the sum comes before the gate
+        kv = sh.tp_sum(kv, split.mesh)
     return torch.sigmoid(x_r @ p.cm_r) * kv, x[:, -1]
 
 

@@ -16,16 +16,17 @@ the same rows.  Each repeat of the block pattern gathers inside the
 function that remat checkpoints, so a recompute gathers again and the full
 weights of one repeat exist at a time.
 
-The serve steps keep attention, the MLP, the embedding and the head local
-on "model" (gathered over the data axes only, with no autograd) and open
-the scope with the caches' capacity and layout: ``model_split`` then gives
-the "model" axis to layer code, ``split_of(module, leaf)`` says which
-parameters are this rank's "model" blocks (local heads, MLP columns and
-rows, vocab rows: layer code computes on them and sums the row-parallel
-outputs over "model"), and ``cache_dim`` says which dim of each cache
-tensor is split (the caches are the rank's blocks of the reference's
-layout, as the serve step resolved it).  On a "model" axis of size 1
-``model_split`` is None and every layer runs as without a mesh.
+The serve steps keep every weight local on "model" (gathered over the data
+axes only, with no autograd) and open the scope with the caches' capacity
+and layout: ``model_split`` then gives the "model" axis to layer code,
+``split_of(module, leaf)`` says which parameters are this rank's "model"
+blocks (local heads, MLP and channel-mix columns and rows, rg-lru
+channels, experts, vocab rows: layer code computes on them and sums the
+row-parallel outputs over "model"; a weight whose "model" dim did not
+divide is whole), and ``cache_dim`` says which dim of each cache tensor is
+split (the caches, recurrent states included, are the rank's blocks of the
+reference's layout, as the serve step resolved it).  On a "model" axis of
+size 1 ``model_split`` is None and every layer runs as without a mesh.
 
 ``constrain`` stays the identity: a rank's activations are its batch block
 by construction, and no layout is requested of a compiler.  The scope is

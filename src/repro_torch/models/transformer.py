@@ -19,9 +19,8 @@ Three execution modes share the block code:
 Under a serve scope that splits "model" (``sharding_ctx.model_split``)
 every cache is this rank's block of the reference's layout: attention
 caches as ``layers.init_layer_cache`` lays them out, recurrent states on
-"state"/heads.  The rg-lru and rwkv mixes still compute on their whole
-weights, so a layer's state is gathered whole before its step and cut back
-to the rank's block after it.
+"state"/heads.  The rg-lru and rwkv mixes compute on their blocks of the
+channels and heads, so a layer steps its state blocks as they are.
 """
 from __future__ import annotations
 
@@ -126,14 +125,6 @@ def state_blocks(state: dict) -> dict:
             for name, t in state.items()}
 
 
-def _whole_state(cfg: ModelConfig, kind: str, state: dict) -> dict:
-    """This rank's blocks of a recurrent state -> the whole state (each
-    tensor gathered over "model" on its split dim)."""
-    full = _init_state(cfg, kind, next(iter(state.values())).shape[0], None, "meta")
-    return {name: S.model_whole(t, S.cache_dim(name, tuple(full[name].shape)))
-            for name, t in state.items()}
-
-
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device) -> list:
     """One cache per layer, in layer order.  Local layers keep a ring of
     ``min(capacity, local_window)`` slots.  Under a serve scope that splits
@@ -188,9 +179,6 @@ def _block(cfg: ModelConfig, p: Block, x: torch.Tensor, *, angles, mask, cache, 
     # decode continues the carried state; train/prefill start fresh (the
     # returned cache is the final state, which prefill keeps)
     state = cache if mode == "decode" else None
-    split = S.model_split() is not None
-    if split and state is not None:
-        state = _whole_state(cfg, kind, state)
     if kind == "rwkv":
         from repro_torch.models.rwkv6 import rwkv_block
 
@@ -204,8 +192,6 @@ def _block(cfg: ModelConfig, p: Block, x: torch.Tensor, *, angles, mask, cache, 
         x = x + L.mlp(cfg, p.mlp, L.rms_norm(x, p.ln2, cfg))
     else:
         raise ValueError(kind)
-    if split and mode != "train":
-        new_cache = state_blocks(new_cache)
     return x, new_cache, None
 
 

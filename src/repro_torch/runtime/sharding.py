@@ -24,12 +24,14 @@ the same sum), and for work split over "model" inside one data row
 ``sum_parts`` (forward sum, backward identity) and ``sum_grads`` (forward
 identity, backward sum).
 
-The LM serve steps split attention, the MLP, the embedding and the head
-over "model" and run under ``torch.inference_mode()``, through collectives
-that never reach autograd: ``gather_block`` (a parameter's value over the
-axes it is not kept local on), ``tp_sum`` (the sum of row-parallel
-partials), ``tp_max`` (the max of a partial softmax) and ``vocab_lookup``
-(an embedding lookup on vocab blocks).  Each skips an axis of size 1.
+The LM serve steps split every layer's weights over "model" and run under
+``torch.inference_mode()``, through collectives that never reach autograd:
+``gather_block`` (a parameter's value over the axes it is not kept local
+on), ``tp_sum`` (the sum of row-parallel partials), ``tp_scatter_sum`` (the
+rank's block of such a sum), ``tp_max`` (the max of a partial softmax),
+``tp_all_to_all`` (blocks of an activation exchanged between ranks) and
+``vocab_lookup`` (an embedding lookup on vocab blocks).  Each skips an axis
+of size 1.
 
 LM parameters use MaxText-style *logical* axes mapped to physical axes by
 ``LogicalAxisRules``.
@@ -76,7 +78,9 @@ __all__ = [
     "gather_param",
     "gather_block",
     "tp_sum",
+    "tp_scatter_sum",
     "tp_max",
+    "tp_all_to_all",
     "vocab_lookup",
     "psum",
     "sum_parts",
@@ -110,14 +114,20 @@ def record_collectives():
             del _recorders[next(i for i, r in enumerate(_recorders) if r is log)]
 
 
-def _record(kind: str, numel: int, dtype, mesh, name: str) -> None:
+def _record(kind: str, numel: int, dtype, mesh, name: str, wire_bytes: float | None = None
+            ) -> None:
     """Note one collective over mesh axis ``name`` whose ring-formula buffer
-    holds ``numel`` elements of ``dtype``."""
+    holds ``numel`` elements of ``dtype``; ``wire_bytes`` replaces the ring
+    formula's where the rank sends another amount (an uneven all-to-all)."""
     if not _recorders:
         return
+    import dataclasses
+
     from repro_torch.launch.roofline import Collective
 
     rec = Collective.of(kind, numel, dtype, dist.get_process_group_ranks(mesh.get_group(name)))
+    if wire_bytes is not None:
+        rec = dataclasses.replace(rec, wire_bytes=float(wire_bytes))
     with _recorders_lock:
         for log in _recorders:
             log.append(rec)
@@ -514,10 +524,37 @@ def tp_sum(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     return _reduce(x, mesh, axis, dist.ReduceOp.SUM)
 
 
+def tp_scatter_sum(x: torch.Tensor, mesh, dim: int, axis: str = "model") -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's partial
+    ``x`` over one mesh axis (a ``reduce_scatter``)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _reduce_scatter(x, mesh, axis, dim)
+
+
 def tp_max(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """The elementwise max of every rank's ``x`` over one mesh axis
     (consumed as in ``tp_sum``)."""
     return _reduce(x, mesh, axis, dist.ReduceOp.MAX)
+
+
+def tp_all_to_all(parts: list, recv: list, mesh, dim: int, axis: str = "model") -> torch.Tensor:
+    """``parts[j]`` sent to rank j of one mesh axis, for every j: the
+    concatenation along ``dim`` of what each rank sent this one, in rank
+    order, of ``recv[i]`` slices from rank i (an ``all_to_all``; a part
+    may be empty).  Recorded with the bytes the rank sends to the others."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return parts[0]
+    src = torch.cat([p.movedim(dim, 0) for p in parts], dim=0).contiguous()
+    out = torch.empty((sum(recv), *src.shape[1:]), dtype=src.dtype, device=src.device)
+    dist.all_to_all_single(out, src, output_split_sizes=list(recv),
+                           input_split_sizes=[int(p.shape[dim]) for p in parts],
+                           group=mesh.get_group(axis))
+    me = axis_index(mesh, axis)
+    _record("all-to-all", src.numel(), src.dtype, mesh, axis,
+            wire_bytes=(src.numel() - parts[me].numel()) * src.element_size())
+    return out.movedim(0, dim)
 
 
 def vocab_lookup(block: torch.Tensor, ids: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:

@@ -10,16 +10,21 @@ takes and returns its own blocks of the reference's layouts:
 
 - parameters as ``train_step.param_specs`` cuts them (``to_blocks``, or
   ``models.convert.init_blocks``): "embed" over the data axes,
-  heads/kv_heads/mlp/vocab over "model".  Attention, the MLP, the
-  embedding and the head keep their "model" blocks and compute on them
-  (``sharding_ctx.model_split``): local q and kv heads, MLP columns and
-  rows, vocab rows, with one sum over "model" after ``wo`` and after
-  ``w_out`` and one in the vocab-parallel lookup.  The rg-lru and rwkv
-  mixes and the MoE experts gather their weights whole over "model";
+  heads/kv_heads/mlp/vocab/experts/state over "model".  Every layer keeps
+  its "model" blocks and computes on them (``sharding_ctx.model_split``):
+  local q and kv heads, MLP columns and rows, vocab rows, with one sum over
+  "model" after ``wo`` and after ``w_out`` and one in the vocab-parallel
+  lookup; the rg-lru's "state" channels (an all-to-all re-pairs each
+  channel's gate and signal, a reduce-scatter sums its gates, a sum
+  follows ``w_out``); rwkv6's heads (a sum after ``w_o``) and channel-mix
+  columns and rows (a sum before the gate); the MoE's router columns (the
+  logits gathered over "model") and experts (each rank dispatches to its
+  own, a sum of the combined outputs).  A weight whose "model" dim does not
+  divide is replicated there and computed whole;
 - caches as ``partition.cache_logical_axes`` lays them out: k/v on kv
   heads, or on slots where the kv heads do not divide "model" (decode then
   combines each rank's partial softmax over "model"), positions on slots,
-  recurrent states on "state"/heads;
+  recurrent states on "state"/heads, stepped as the rank's blocks;
 - logits as ``divisible_sharding(mesh, P(dp, "model"), (B, vocab))``.
 
 The batch (prefill) and ``token``/``pos`` (decode) are given whole; each
@@ -45,22 +50,13 @@ from repro_torch.train import train_step as TS
 
 __all__ = ["build_prefill_step", "build_decode_step", "serve_kept", "cache_specs"]
 
-# modules whose weights compute on their "model" blocks when serving
-_SPLIT_OWNERS = ("attn", "self_attn", "cross_attn", "mlp", "dense")
-
-
 def serve_kept(cfg: ModelConfig, mesh, specs: dict) -> dict:
     """Parameter name -> the axes the serve steps keep local: "model" for
-    attention, the MLP (arctic's ``moe.dense`` included), the embedding and
-    the head; the manual MoE's experts as in training.  The rg-lru and rwkv
-    weights (rg-lru's ``w_out`` too) and the GSPMD MoE's experts are
-    gathered whole."""
-    keep = dict(TS.kept_local(cfg, mesh, specs))
-    for name in specs:
-        parts = name.split(".")
-        if parts in (["embed"], ["lm_head"]) or (len(parts) > 1 and parts[-2] in _SPLIT_OWNERS):
-            keep[name] = ("model",)
-    return keep
+    every parameter (attention, the MLP and arctic's ``moe.dense``, the
+    rg-lru and rwkv mixes, the MoE's router and experts, the embedding and
+    the head), so no weight is gathered over "model".  A "model" dim that
+    does not divide is replicated in its spec, and the weight is whole."""
+    return {name: ("model",) for name in specs}
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> list:

@@ -2,7 +2,8 @@
 
 - A gloo world of 4 processes runs the port's steps on real tensors:
   gemma2-9b training on (2, 2), granite-moe-1b-a400m training on (4, 1),
-  qwen1.5-32b prefill and decode on (1, 4), all at ``reduced()`` widths in
+  qwen1.5-32b prefill and decode on (1, 4), and recurrentgemma-2b, rwkv6-3b
+  and granite-moe-1b-a400m decode on (1, 4), all at ``reduced()`` widths in
   float32.  Each rank then leaves the world and traces the same cells as the
   same rank of a fake world of 4 (``launch.mesh.fake_world``, under
   ``FakeTensorMode``).  Both run through ``launch.roofline.trace_step`` on
@@ -48,6 +49,12 @@ GLOO_CELLS = (
      dict(remat="dots")),
     ("qwen_prefill", "qwen1.5-32b", (1, 4), ("prefill_32k", 48, 4, "prefill"), None),
     ("qwen_decode", "qwen1.5-32b", (1, 4), ("decode_32k", 48, 4, "decode"), None),
+    # the split recurrent and expert layers' collectives: an all-to-all and a
+    # reduce-scatter (rg-lru), sums after rwkv6's channel mix and the experts
+    ("recurrentgemma_decode", "recurrentgemma-2b", (1, 4), ("decode_32k", 48, 4, "decode"),
+     None),
+    ("rwkv6_decode", "rwkv6-3b", (1, 4), ("decode_32k", 48, 4, "decode"), None),
+    ("granite_decode", "granite-moe-1b-a400m", (1, 4), ("decode_32k", 48, 4, "decode"), None),
 )
 WORLDS = {"pod": (2, 2), "multipod": (2, 4, 1)}
 

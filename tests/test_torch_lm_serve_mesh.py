@@ -1,17 +1,21 @@
 """The LM serve steps on a mesh on the CPU: a gloo world of 4 processes runs
 the port's ``build_prefill_step(mesh=)`` / ``build_decode_step(mesh=)`` for
 every arch of ``LM_ARCHS`` (and whisper with 2 heads, whose self and
-cross caches split on slots) on ``("data", "model")`` meshes (2, 2) and
-(1, 4), held against the port's ``mesh=None`` steps and against the
-reference's own mesh steps.
+cross caches split on slots; rwkv6 with 4 heads of 16, which split over
+"model" where its one ``reduced()`` head does not; granite with the manual
+expert-parallel MoE) on ``("data", "model")`` meshes (2, 2) and (1, 4),
+held against the port's ``mesh=None`` steps and against the reference's
+own mesh steps.
 
 One module fixture draws each arch's weights (the port's ``init_model``
 from a seeded generator, float32 ``reduced()`` configs), a B=4 prompt of 24
 positions (``make_batch``; past the local window of 16, so local rings
-wrap) and 8 continuation tokens, and starts three things at once: the
-world of 4 (file-store rendezvous under ``tmp_path``, one thread per
-rank), a world of one, and a child with 4 fake XLA host devices that runs
-the reference's mesh steps on a ``jax.sharding.Mesh`` of the same shape
+wrap) and 8 continuation tokens, and starts three things at once
+(``start_worlds``, which ``tests/test_torch_lm_serve_split.py`` shares):
+the world of 4 (file-store rendezvous under ``tmp_path``, one thread per
+rank), a world of one, and for each mesh shape a child with 4 fake XLA
+host devices that runs the reference's mesh steps on a
+``jax.sharding.Mesh`` of that shape
 (Auto axes; ``jax.make_mesh`` gives Explicit ones under jax 0.9.0).  Each
 run is a prefill into 32-slot caches, then 8 teacher-forced decode steps.
 The tests read every rank's results.
@@ -22,7 +26,8 @@ after the last step within 1e-4 * max |ref| (cache positions exactly), as
 logits have the shapes of the reference's shards on the same device
 (``partition.tree_shardings``) and their values within the same bound; on
 a world of one, bitwise equal to ``mesh=None``, and a step that lives on
-keeps no reference to the model it served.
+keeps no reference to the model it served.  During the first decode step
+no rank gathers a weight or a recurrent state over "model".
 """
 import dataclasses
 import os
@@ -48,39 +53,44 @@ from repro_torch.train.train_step import param_specs  # noqa: E402
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORLD = 4
 TIMEOUT_S = 300
 B, S, CAP, STEPS = 4, 24, 32, 8
 REL = 1e-4
 MESHES = ((2, 2), (1, 4))
+
+
+def _manual(cfg):
+    """The manual expert-parallel MoE at capacity factor E: no token is
+    dropped, so it serves what the GSPMD layer of ``mesh=None`` does."""
+    return dataclasses.replace(cfg, moe_impl="manual",
+                               moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts))
+
+
 # whisper with 2 heads: on (1, 4) neither its q nor its kv heads divide
-# "model", so its self and cross caches are split on slots
-VARIANTS = {"whisper-small-2h": ("whisper-small", dict(n_heads=2, n_kv_heads=2))}
+# "model", so its self and cross caches are split on slots.  rwkv6's
+# reduced() has one head of 64 (replicated over "model"); with heads of 16
+# its 4 heads split.
+VARIANTS = {"whisper-small-2h": ("whisper-small", dict(n_heads=2, n_kv_heads=2)),
+            "rwkv6-3b-4h": ("rwkv6-3b", dict(rwkv_head_dim=16)),
+            "granite-moe-manual": ("granite-moe-1b-a400m", _manual)}
 SERVED = tuple(LM_ARCHS) + tuple(VARIANTS)
-ONE = ("gemma2-9b", "qwen1.5-32b", "recurrentgemma-2b", "whisper-small", "arctic-480b")
+ONE = ("gemma2-9b", "qwen1.5-32b", "recurrentgemma-2b", "whisper-small", "arctic-480b",
+       "rwkv6-3b", "rwkv6-3b-4h", "granite-moe-1b-a400m", "granite-moe-manual")
 CELLS = [(a, m) for a in SERVED for m in MESHES]
-# the leaves attention, the MLP, the embedding and the head compute on
-SPLIT_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_in", "w_gate", "w_out", "embed",
-                "lm_head")
+# the recurrent states' cache keys
+STATES = ("h", "conv", "wkv")
 
 
 def arch_config(name: str, *, get=get_config):
     """The float32 ``reduced()`` config of an arch or of a variant."""
-    arch, changes = VARIANTS.get(name, (name, {}))
-    return dataclasses.replace(get(arch).reduced(), dtype="float32", **changes)
-
-
-def split_leaf(name: str) -> bool:
-    """Whether a parameter is one the serve steps keep on "model": the
-    rg-lru's ``w_out`` and the MoE experts are gathered whole."""
-    parts = name.split(".")
-    return parts[-1] in SPLIT_LEAVES and "rec" not in parts and not (
-        "moe" in parts and "dense" not in parts)
+    arch, change = VARIANTS.get(name, (name, {}))
+    cfg = dataclasses.replace(get(arch).reduced(), dtype="float32")
+    return change(cfg) if callable(change) else dataclasses.replace(cfg, **change)
 
 
 _RANK = textwrap.dedent(
     r"""
-    import datetime, gc, hashlib, os, pickle, sys, traceback, weakref
+    import datetime, gc, hashlib, math, os, pickle, sys, traceback, weakref
     rank, world, store, work, src = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                                      sys.argv[4], sys.argv[5])
     sys.path.insert(0, src)
@@ -91,7 +101,7 @@ _RANK = textwrap.dedent(
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=240))
-    from test_torch_lm_serve_mesh import (B, CAP, MESHES, ONE, S, SERVED, STEPS, arch_config)
+    from test_torch_lm_serve_mesh import B, CAP, S, STATES, STEPS, arch_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import api as M
@@ -103,6 +113,8 @@ _RANK = textwrap.dedent(
 
     res = {}
     shape = ShapeConfig("serve", CAP, B, "prefill")
+    with open(os.path.join(work, "plan.pkl"), "rb") as f:
+        plan = pickle.load(f)
 
     def model_of(cfg, arch, mesh):
         model = M.init_model(cfg, generator=None, device="cpu", max_positions=64)
@@ -120,30 +132,40 @@ _RANK = textwrap.dedent(
         out = {"logits": [logits], "prefill_caches": convert.caches_to_numpy(cfg, caches)}
         for t in range(STEPS):
             if on_decode is not None and t == 0:
-                with on_decode():
+                with on_decode(caches):
                     logits, caches = dec(model, cont[:, t], np.full((B,), S + t, np.int32), caches)
             else:
                 logits, caches = dec(model, cont[:, t], np.full((B,), S + t, np.int32), caches)
             out["logits"].append(logits)
         return out, caches
 
-    def gather_log(model, mesh, log):
-        # records the mesh axes each parameter's gather runs over
+    def gather_log(model, mesh, log, states):
+        # records the mesh axes each parameter's gather runs over, and the
+        # shape of each recurrent state (a tensor of the caches passed in)
+        # that any gather over "model" reads
         import contextlib
         names = {id(p): n for n, p in model.named_parameters()}
-        plain = sh.gather_block
+        plain_block, plain_cat = sh.gather_block, sh._gather_cat
         def logged(block, m, spec, keep=()):
             axes = [a for e in spec for a in sh._names(e)
                     if a not in keep and sh.axis_size(m, a) > 1]
             log.append((names[id(block)], tuple(axes)))
-            return plain(block, m, spec, keep)
+            return plain_block(block, m, spec, keep)
+        def logged_cat(x, m, name, dim):
+            if name == "model" and sh.axis_size(m, name) > 1 and x.data_ptr() in state_ptrs:
+                states.append(tuple(x.shape))
+            return plain_cat(x, m, name, dim)
+        state_ptrs = set()
         @contextlib.contextmanager
-        def ctx():
-            sh.gather_block = logged
+        def ctx(caches):
+            state_ptrs.clear()
+            state_ptrs.update(t.data_ptr() for c in caches if isinstance(c, dict)
+                              for k, t in c.items() if k in STATES)
+            sh.gather_block, sh._gather_cat = logged, logged_cat
             try:
                 yield
             finally:
-                sh.gather_block = plain
+                sh.gather_block, sh._gather_cat = plain_block, plain_cat
         return ctx
 
     def digest(arrays):
@@ -154,7 +176,7 @@ _RANK = textwrap.dedent(
 
     if world == 1:
         mesh = make_mesh((1, 1), ("data", "model"))
-        for arch in ONE:
+        for arch in plan["one"]:
             def one(arch=arch):
                 cfg = arch_config(arch)
                 batch, cont = inputs(arch)
@@ -182,39 +204,43 @@ _RANK = textwrap.dedent(
             except Exception:
                 res[arch] = {"error": traceback.format_exc()}
     else:
-        meshes = {s: make_mesh(s, ("data", "model")) for s in MESHES}
-        for arch in SERVED:
-            for ms, mesh in meshes.items():
-                def one(arch=arch, mesh=mesh):
-                    cfg = arch_config(arch)
-                    batch, cont = inputs(arch)
-                    model = model_of(cfg, arch, mesh)
-                    log = []
-                    out, caches = serve(cfg, model, mesh, batch, cont, gather_log(model, mesh, log))
-                    dp = sh.batch_axes(mesh)
-                    specs = cache_specs(cfg, shape, mesh)
-                    whole = convert.caches_from_blocks(caches, specs, mesh)
-                    again = convert.caches_to_blocks(whole, specs, mesh)
-                    local = convert.caches_to_numpy(cfg, caches)
-                    row = {
-                        "local_logits": [l.numpy() for l in out["logits"]],
-                        "local_prefill_caches": out["prefill_caches"],
-                        "local_caches": local,
-                        "round_trip": all(np.array_equal(u, v) for u, v in zip(
-                            jax_leaves(local), jax_leaves(convert.caches_to_numpy(cfg, again)))),
-                        "gathers": log,
-                    }
-                    logits = [sh.gather_full(l, mesh, sh.P(dp, "model")).numpy()
-                              for l in out["logits"]]
-                    final = convert.caches_to_numpy(cfg, whole)
-                    row["digest"] = digest(logits + jax_leaves(final))
-                    if rank == 0:
-                        row["logits"], row["caches"] = logits, final
-                    return row
-                try:
-                    res[(arch, ms)] = one()
-                except Exception:
-                    res[(arch, ms)] = {"error": traceback.format_exc()}
+        cells = [(a, ms) for a, ms in plan["cells"] if math.prod(ms) == world]
+        meshes = {ms: make_mesh(ms, ("data", "model"))
+                  for ms in dict.fromkeys(ms for _, ms in cells)}
+        for arch, ms in cells:
+            mesh = meshes[ms]
+            def one(arch=arch, mesh=mesh):
+                cfg = arch_config(arch)
+                batch, cont = inputs(arch)
+                model = model_of(cfg, arch, mesh)
+                log, states = [], []
+                out, caches = serve(cfg, model, mesh, batch, cont,
+                                    gather_log(model, mesh, log, states))
+                dp = sh.batch_axes(mesh)
+                specs = cache_specs(cfg, shape, mesh)
+                whole = convert.caches_from_blocks(caches, specs, mesh)
+                again = convert.caches_to_blocks(whole, specs, mesh)
+                local = convert.caches_to_numpy(cfg, caches)
+                row = {
+                    "local_logits": [l.numpy() for l in out["logits"]],
+                    "local_prefill_caches": out["prefill_caches"],
+                    "local_caches": local,
+                    "round_trip": all(np.array_equal(u, v) for u, v in zip(
+                        jax_leaves(local), jax_leaves(convert.caches_to_numpy(cfg, again)))),
+                    "gathers": log,
+                    "state_gathers": states,
+                }
+                logits = [sh.gather_full(l, mesh, sh.P(dp, "model")).numpy()
+                          for l in out["logits"]]
+                final = convert.caches_to_numpy(cfg, whole)
+                row["digest"] = digest(logits + jax_leaves(final))
+                if rank == 0:
+                    row["logits"], row["caches"] = logits, final
+                return row
+            try:
+                res[(arch, ms)] = one()
+            except Exception:
+                res[(arch, ms)] = {"error": traceback.format_exc()}
 
     with open(os.path.join(work, f"rank{rank}_of{world}.pkl"), "wb") as f:
         pickle.dump(res, f)
@@ -241,12 +267,12 @@ _REF = textwrap.dedent(
     r"""
     import os, pickle, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    work, src = sys.argv[1], sys.argv[2]
+    work, src, part = sys.argv[1], sys.argv[2], sys.argv[3]
     sys.path.insert(0, os.path.join(os.path.dirname(src), "tests"))
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from test_torch_lm_serve_mesh import B, CAP, MESHES, S, SERVED, STEPS, arch_config
+    from test_torch_lm_serve_mesh import B, CAP, S, STEPS, arch_config
     from repro.configs import get_config
     from repro.configs.base import ShapeConfig
     from repro.launch.train import unflatten_like
@@ -261,15 +287,18 @@ _REF = textwrap.dedent(
 
     out = {}
     shape = ShapeConfig("serve", CAP, B, "prefill")
-    for arch in SERVED:
+    with open(os.path.join(work, "plan.pkl"), "rb") as f:
+        cells = [(a, ms) for a, ms in pickle.load(f)["cells"] if "x".join(map(str, ms)) == part]
+    for arch in dict.fromkeys(a for a, _ in cells):
         cfg = arch_config(arch, get=get_config)
         flat = dict(np.load(os.path.join(work, f"w_{arch}.npz")))
         params = unflatten_like(RM.abstract_params(cfg, max_positions=64), flat)
         z = dict(np.load(os.path.join(work, f"b_{arch}.npz")))
         cont = z.pop("cont")
         batch = {k: jnp.asarray(v) for k, v in z.items()}
-        for ms in MESHES:
-            mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(ms), ("data", "model"))
+        for ms in [m for a, m in cells if a == arch]:
+            devices = jax.devices()[:int(np.prod(ms))]
+            mesh = jax.sharding.Mesh(np.array(devices).reshape(ms), ("data", "model"))
             caches_abs = RM.abstract_caches(cfg, shape)
             want = partition.tree_shardings(partition.cache_logical_axes(caches_abs), mesh,
                                             DEFAULT_RULES, abstract_tree=caches_abs)
@@ -290,7 +319,7 @@ _REF = textwrap.dedent(
             row["spec_shapes"] = [w.shard_shape(x.shape) for w, x in
                                   zip(jax.tree.leaves(want), leaves)]
             out[(arch, ms)] = row
-    with open(os.path.join(work, "reference.pkl"), "wb") as f:
+    with open(os.path.join(work, f"reference_{part}.pkl"), "wb") as f:
         pickle.dump(out, f)
     """
 )
@@ -308,13 +337,18 @@ def _serve_unsharded(cfg, model, batch, cont):
     return out
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    work = str(tmp_path_factory.mktemp("lm_serve_mesh"))
+def start_worlds(work: str, served, cells, one, seed: int = 200) -> dict:
+    """Draw the weights and inputs of each arch of ``served`` into ``work``,
+    then run at once: a gloo world for each mesh size of ``cells`` ((arch,
+    mesh shape) pairs), a world of one serving each arch of ``one``, the
+    reference's mesh steps of the cells of each mesh shape in a child with
+    4 fake XLA devices, and here the port's ``mesh=None`` steps.  Returns every
+    process's results: ``ranks`` (mesh size -> each rank's results by
+    cell), ``one``, ``reference`` and ``unsharded`` (by arch)."""
     inputs = {}
-    for i, arch in enumerate(SERVED):
+    for i, arch in enumerate(served):
         cfg = arch_config(arch)
-        model = M.init_model(cfg, generator=torch.Generator().manual_seed(200 + i), device="cpu",
+        model = M.init_model(cfg, generator=torch.Generator().manual_seed(seed + i), device="cpu",
                              max_positions=64)
         np.savez(os.path.join(work, f"w_{arch}.npz"),
                  **convert.reference_flat(cfg, model, dict(model.named_parameters())))
@@ -323,6 +357,8 @@ def world(tmp_path_factory):
         cont = np.random.default_rng(i).integers(0, cfg.vocab, (B, STEPS)).astype(np.int32)
         np.savez(os.path.join(work, f"b_{arch}.npz"), cont=cont, **batch)
         inputs[arch] = (cfg, model, batch, cont)
+    with open(os.path.join(work, "plan.pkl"), "wb") as f:
+        pickle.dump({"cells": list(cells), "one": list(one)}, f)
 
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1",
                JAX_PLATFORMS="cpu")
@@ -338,10 +374,13 @@ def world(tmp_path_factory):
         return subprocess.Popen([sys.executable, *args], cwd=work, env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
 
-    procs = [start([rank_py, str(r), str(WORLD), os.path.join(work, "store4"), work, src])
-             for r in range(WORLD)]
-    procs.append(start([rank_py, "0", "1", os.path.join(work, "store1"), work, src]))
-    procs.append(start([ref_py, work, src]))
+    sizes = sorted({int(np.prod(ms)) for _, ms in cells})
+    procs = [start([rank_py, str(r), str(n), os.path.join(work, f"store{n}"), work, src])
+             for n in sizes for r in range(n)]
+    if one:
+        procs.append(start([rank_py, "0", "1", os.path.join(work, "store1"), work, src]))
+    parts = ["x".join(map(str, ms)) for ms in dict.fromkeys(ms for _, ms in cells)]
+    procs += [start([ref_py, work, src, part]) for part in parts]
     unsharded = {arch: _serve_unsharded(cfg, model, batch, cont)
                  for arch, (cfg, model, batch, cont) in inputs.items()}
     errs = []
@@ -354,15 +393,26 @@ def world(tmp_path_factory):
         if p.returncode != 0:
             errs.append(err[-4000:])
     assert not errs, errs
-    ranks = [pickle.load(open(os.path.join(work, f"rank{r}_of{WORLD}.pkl"), "rb"))
-             for r in range(WORLD)]
-    one = pickle.load(open(os.path.join(work, "rank0_of1.pkl"), "rb"))
-    reference = pickle.load(open(os.path.join(work, "reference.pkl"), "rb"))
-    return dict(inputs=inputs, ranks=ranks, one=one, reference=reference, unsharded=unsharded)
+
+    def load(name):
+        with open(os.path.join(work, name), "rb") as f:
+            return pickle.load(f)
+
+    reference = {}
+    for part in parts:
+        reference.update(load(f"reference_{part}.pkl"))
+    return dict(inputs=inputs, unsharded=unsharded, reference=reference,
+                ranks={n: [load(f"rank{r}_of{n}.pkl") for r in range(n)] for n in sizes},
+                one=load("rank0_of1.pkl") if one else {})
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    return start_worlds(str(tmp_path_factory.mktemp("lm_serve_mesh")), SERVED, CELLS, ONE)
 
 
 def _result(world, cell, rank=0):
-    res = world["ranks"][rank][cell]
+    res = world["ranks"][int(np.prod(cell[1]))][rank][cell]
     assert "error" not in res, res.get("error")
     return res
 
@@ -415,7 +465,7 @@ def test_rank_blocks_follow_reference_layout(world, arch, mesh):
     ``partition.tree_shardings``) and its values; cutting the gathered
     caches into blocks gives the rank's blocks back bit for bit."""
     ref = world["reference"][(arch, mesh)]
-    for r in range(WORLD):
+    for r in range(int(np.prod(mesh))):
         res = _result(world, (arch, mesh), r)
         assert res["round_trip"]
         for label, key in (("prefill", "prefill_cache"), ("final", "cache")):
@@ -433,30 +483,32 @@ def test_rank_blocks_follow_reference_layout(world, arch, mesh):
 @pytest.mark.parametrize("arch,mesh", CELLS)
 def test_ranks_gather_the_same_bits(world, arch, mesh):
     """Every rank's gathered logits and caches are the same bits."""
-    digests = {_result(world, (arch, mesh), r)["digest"] for r in range(WORLD)}
+    digests = {_result(world, (arch, mesh), r)["digest"] for r in range(int(np.prod(mesh)))}
     assert len(digests) == 1
+
+
+def held_local(world, cells):
+    """Every rank of every cell: no weight gathered over "model" during the
+    first decode step (each layer computes on its blocks; a "model" dim
+    that does not divide is no "model" dim of the spec), and no recurrent
+    state gathered there by any collective (the mixes step their state
+    blocks)."""
+    for arch, mesh in cells:
+        for r in range(int(np.prod(mesh))):
+            res = _result(world, (arch, mesh), r)
+            assert res["gathers"], (arch, mesh, r, "no gather was logged")
+            over_model = [(n, a) for n, a in res["gathers"] if "model" in a]
+            assert not over_model, (arch, mesh, r, over_model)
+            assert not res["state_gathers"], (arch, mesh, r, res["state_gathers"])
 
 
 @pytest.mark.parametrize("mesh", MESHES)
 def test_split_weights_are_not_gathered_over_model(world, mesh):
-    """During one decode step no rank gathers a weight of attention, the
-    MLP, the embedding or the head over "model" (they compute on their
-    blocks); the rg-lru and rwkv mixes and the MoE experts do gather
-    theirs whole, which the log shows where "model" has more than one
-    rank."""
-    over_model = set()
-    for arch in SERVED:
-        for r in range(WORLD):
-            for name, axes in _result(world, (arch, mesh), r)["gathers"]:
-                assert not (split_leaf(name) and "model" in axes), (arch, r, name, axes)
-                if "model" in axes:
-                    over_model.add((arch, name.split(".")[-1]))
-    if mesh[1] > 1:
-        assert ("recurrentgemma-2b", "w_branch") in over_model
-        assert ("rwkv6-3b", "cm_k") in over_model
-        assert ("granite-moe-1b-a400m", "w_in") in over_model
-    else:
-        assert not over_model
+    """During one decode step no rank gathers over "model" any weight whose
+    spec has "model": attention, the MLP, the embedding and the head, the
+    rg-lru and rwkv mixes, the MoE's router and experts all compute on
+    their blocks; nor is a recurrent state gathered."""
+    held_local(world, [(a, m) for a, m in CELLS if m == mesh])
 
 
 @pytest.mark.parametrize("arch", ONE)
