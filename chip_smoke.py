@@ -414,19 +414,23 @@ LM_TRAIN = dict(arch="granite-moe-1b-a400m", batch=4, seq=4096, steps=8, resume_
 # LM training on a mesh.  lm_mesh_one: gemma2-9b at full width, one repeat
 # of its pattern, on a world of one: the mesh step bitwise equal to
 # mesh=None.  lm_mesh (4 cards): (a) parity at reduced depth in float32 on
-# (2, 2) and (4, 1) against mesh=None on cuda:0, granite-moe-1b-a400m whole
-# on (2, 2) (GSPMD with the config's capacity, manual vs GSPMD at capacity
-# factor E, a checkpoint cut at step 2 resumed on one card; the MoE's cost
-# on (4, 1) in bf16, GSPMD vs manual vs one card); (b) gemma2-9b
-# whole with FSDP on (4, 1), the reference's TRAIN_OVERRIDES["gemma2-9b"]
-# (4 microbatches, remat full, loss_chunk 512, float32 m/v), B=16, S=4,096.
+# (2, 2), (1, 4) and (4, 1) against mesh=None on cuda:0 (on (2, 2) and (1,
+# 4) every layer computes on its "model" blocks), granite-moe-1b-a400m
+# whole on (1, 4) and (2, 2) (GSPMD with the config's capacity; on (2, 2)
+# manual vs GSPMD at capacity factor E, a checkpoint cut at step 2 resumed
+# on one card; the MoE's cost on (4, 1) in bf16, GSPMD vs manual vs one
+# card); (b) gemma2-9b whole on (4, 1) (FSDP only), (2, 2) and (1, 4)
+# (FSDP and the "model" split), the reference's
+# TRAIN_OVERRIDES["gemma2-9b"] (4 microbatches, remat full, loss_chunk 512,
+# float32 m/v), B=16, S=4,096, each held to its trace on a fake world.
 LM_MESH_ONE = dict(arch="gemma2-9b", batch=2, seq=256, remat="full", loss_chunk=128, seed=2026)
 LM_MESH = dict(arch="gemma2-9b", batch=8, seq=512, seed=2026, loss_rel=1e-5, grad_rel=1e-4,
-               shapes=((2, 2), (4, 1)), moe_arch="granite-moe-1b-a400m", moe_batch=8,
-               moe_seq=512, manual_bound=1e-3, cut_at=2, resume_to=4,
+               shapes=((2, 2), (1, 4), (4, 1)), moe_arch="granite-moe-1b-a400m", moe_batch=8,
+               moe_seq=512, moe_shapes=((1, 4), (2, 2)), manual_bound=1e-3, cut_at=2,
+               resume_to=4,
                moe_cost=dict(batch=4, seq=4096, steps=4, remat="dots", loss_chunk=1024),
-               whole=dict(batch=16, seq=4096, steps=6, n_microbatches=4, remat="full",
-                          loss_chunk=512))
+               whole=dict(shapes=((4, 1), (2, 2), (1, 4)), batch=16, seq=4096, steps=5,
+                          n_microbatches=4, remat="full", loss_chunk=512, first_loss_rel=1e-2))
 # LM serving on a mesh.  lm_serve_mesh_one: gemma2-9b at full width, one
 # repeat of its pattern, on a world of one: prefill and 8 decode steps
 # through the mesh arms bitwise equal to mesh=None.  lm_serve_mesh (4
@@ -3262,6 +3266,8 @@ def _lm_mesh_one_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
            for k in a if not torch.equal(a[k], b[k])])
     del runs, m0, m1, o0, o1, p0, p1
     torch.cuda.empty_cache()
+    out["granite_ulp"] = _ulp_moved(dev)
+    torch.cuda.empty_cache()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         port_train.main(["--arch", p["arch"], "--reduced", "--steps", "1", "--log-every", "1",
@@ -3271,12 +3277,49 @@ def _lm_mesh_one_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
     return out
 
 
+def _ulp_moved(dev) -> dict:
+    """The conditioning of lm_mesh's granite parity cell on one card, with
+    no mesh: granite-moe-1b-a400m whole in float32 (LM_MESH's seed, batch
+    and sequence), its gradients before and after every weight moves by one
+    float32 ulp (up or down at random), as
+    ``tests/test_torch_train_parity.py`` probes rwkv6-3b.  The worst
+    leaf's max |g1 - g0| / max |g0|, and the routers' worst."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api as M
+    from repro_torch.train import make_batch
+    from repro_torch.train.train_step import TrainStepConfig, loss_and_grads
+
+    p = LM_MESH
+    cfg = dataclasses.replace(_lm_config(p["moe_arch"]), dtype="float32")
+    shape = ShapeConfig("t", p["moe_seq"], p["moe_batch"], "train")
+    batch = _on(make_batch(cfg, shape, 0, seed=p["seed"]), dev)
+    model = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(p["seed"]),
+                         device=dev)
+    _, _, g0 = loss_and_grads(cfg, TrainStepConfig(), model, batch)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        for w in model.parameters():
+            up = torch.rand(w.shape, generator=gen, device=dev) < 0.5
+            w.copy_(torch.nextafter(w, torch.where(up, torch.inf, -torch.inf).to(w.dtype)))
+    _, _, g1 = loss_and_grads(cfg, TrainStepConfig(), model, batch)
+    moved = {k: float((g1[k] - g0[k]).abs().max()) / max(float(g0[k].abs().max()), 1e-30)
+             for k in g0}
+    worst = max(moved, key=moved.get)
+    return {"arch": p["moe_arch"], "batch": p["moe_batch"], "seq": p["moe_seq"],
+            "moved_max_rel": moved[worst], "worst_leaf": worst,
+            "router_moved_max_rel": max(v for k, v in moved.items() if k.endswith("moe.router"))}
+
+
 def phase_lm_mesh_one() -> dict:
     """The default run's LM mesh phase: a world of one over NCCL, mesh
     (1, 1).  gemma2-9b at full width, one repeat of its pattern, B=2,
     S=256: the mesh train step bitwise equal to the mesh=None one (the
     gather and the gradient reduce are identities), and one step of
-    ``launch/train.py --mesh pod``; no kernel of the repo launched."""
+    ``launch/train.py --mesh pod``; no kernel of the repo launched.  Also
+    ``_ulp_moved``: how far lm_mesh's granite gradients move under a
+    one-ulp change of the weights."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
     try:
         res = _spawn_world(tmp, (1, 1), LM_MESH_ONE, body="_lm_mesh_one_rank")[0]
@@ -3393,7 +3436,8 @@ def _lm_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
     del want
     torch.cuda.empty_cache()
 
-    # (a) granite-moe-1b-a400m whole, float32, on (2, 2)
+    # (a) granite-moe-1b-a400m whole, float32, on (1, 4) and (2, 2); the
+    # model on (2, 2) goes on to the checks and steps below
     m22 = meshes["2x2"]
     cfg = dataclasses.replace(_lm_config(p["moe_arch"]), dtype="float32")
     shape = ShapeConfig("t", p["moe_seq"], p["moe_batch"], "train")
@@ -3401,10 +3445,16 @@ def _lm_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
     drops = _counting_drops()
     want = unsharded(cfg, tcfg, batches[0])
     out["moe_dropped_unsharded"] = sum(drops)
-    drops.clear()
-    model, opt = init_train_state(cfg, tcfg, gen(), device=dev, mesh=m22)
-    out["granite"] = _held_grads(cfg, tcfg, model, batches[0], m22, want)
-    out["moe_dropped_mesh_rank"] = sum(drops)
+    out["granite"] = {}
+    for s in p["moe_shapes"]:
+        label = "x".join(map(str, s))
+        model = opt = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        drops.clear()
+        model, opt = init_train_state(cfg, tcfg, gen(), device=dev, mesh=meshes[label])
+        out["granite"][label] = {**_held_grads(cfg, tcfg, model, batches[0], meshes[label], want),
+                                 "dropped_rank": sum(drops)}
     del want
     cfg_e = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
@@ -3490,77 +3540,94 @@ def _lm_mesh_rank(mesh, rank: int, p: dict, tmp: str) -> dict:
             dist.barrier()
     torch.cuda.empty_cache()
 
-    # (b) gemma2-9b whole, bfloat16, FSDP on (4, 1)
+    # (b) gemma2-9b whole, bfloat16, on each of (4, 1), (2, 2), (1, 4)
     w = p["whole"]
     cfg = _lm_config(p["arch"])
     shape = ShapeConfig("train_4k", w["seq"], w["batch"], "train")
     tcfg = TrainStepConfig(n_microbatches=w["n_microbatches"], remat=w["remat"],
                            loss_chunk=w["loss_chunk"])
     batches = [make_batch(cfg, shape, i) for i in range(w["steps"] + 1)]
-    gc.collect()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    (model, opt), init_s = _timed(lambda: init_train_state(cfg, tcfg, gen(), device=dev,
-                                                          max_positions=w["seq"], mesh=m41))
-    rest = torch.cuda.memory_allocated() - base
-    step = build_train_step(cfg, tcfg=tcfg, mesh=m41)
-    losses, step_s, received = [], [], []
-    for i in range(w["steps"]):
-        with sh.record_collectives() as colls:
-            (model, opt, metrics), dt = _timed(lambda: step(model, opt, batches[i]))
-        losses.append(float(metrics["loss"]))
-        step_s.append(dt)
-        received.append(sum(c.wire_bytes for c in colls))
-    peak = torch.cuda.max_memory_allocated()
-    profile = _device_profile(lambda: step(model, opt, batches[-1]), 1, top=10)
-    l1, _, g1 = loss_and_grads(cfg, tcfg, model, batches[-1], mesh=m41)
-    l2, _, g2 = loss_and_grads(cfg, tcfg, model, batches[-1], mesh=m41)
-    differ = _grads_differ(g1, g2) + ([] if torch.equal(l1, l2) else ["loss"])
-    del g1, g2, model, opt
-    torch.cuda.empty_cache()
-    warm = sorted(1e3 * t for t in step_s[1:])
     flops = model_flops(cfg, shape)
-    out["whole"] = {
-        "n_layers": cfg.n_layers, "d_model": cfg.d_model, "mesh": describe(m41),
-        "batch": w["batch"], "seq": w["seq"], "n_microbatches": w["n_microbatches"],
-        "remat": w["remat"], "loss_chunk": w["loss_chunk"], "init_s": init_s, "losses": losses,
-        "step_s": step_s, "base_bytes": base, "rest_bytes": rest, "peak_bytes": peak,
-        "received_bytes_per_step": received, "model_flops": flops,
-        "bound_ms": 1e3 * flops / (sh.axis_size(m41, ("data", "model")) * HW().peak_flops),
-        "repeat_differing": differ, "profile": profile,
-    }
-    if warm:
-        out["whole"]["step_ms_median"] = statistics.median(warm)
-        out["whole"]["step_ms_p95"] = warm[min(len(warm) - 1, math.ceil(0.95 * len(warm)) - 1)]
+    out["whole"] = {}
+    for s in w["shapes"]:
+        label = "x".join(map(str, s))
+        m = meshes[label]
+        axis_of = {tuple(dist.get_process_group_ranks(m.get_group(a))): a
+                   for a in ("data", "model")}
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (model, opt), init_s = _timed(lambda: init_train_state(cfg, tcfg, gen(), device=dev,
+                                                              max_positions=w["seq"], mesh=m))
+        rest = torch.cuda.memory_allocated() - base
+        step = build_train_step(cfg, tcfg=tcfg, mesh=m)
+        losses, step_s, received, by_kind = [], [], [], {}
+        for i in range(w["steps"]):
+            with sh.record_collectives() as colls:
+                (model, opt, metrics), dt = _timed(lambda: step(model, opt, batches[i]))
+            losses.append(float(metrics["loss"]))
+            step_s.append(dt)
+            received.append(sum(c.wire_bytes for c in colls))
+            kinds: dict = {}
+            for c in colls:
+                key = f"{c.kind} {axis_of.get(c.ranks, 'other')}"
+                kinds[key] = kinds.get(key, 0.0) + c.wire_bytes
+            by_kind = kinds
+        peak = torch.cuda.max_memory_allocated()
+        profile = _device_profile(lambda: step(model, opt, batches[-1]), 1, top=10)
+        l1, _, g1 = loss_and_grads(cfg, tcfg, model, batches[-1], mesh=m)
+        l2, _, g2 = loss_and_grads(cfg, tcfg, model, batches[-1], mesh=m)
+        differ = _grads_differ(g1, g2) + ([] if torch.equal(l1, l2) else ["loss"])
+        del g1, g2, model, opt, step
+        torch.cuda.empty_cache()
+        warm = sorted(1e3 * t for t in step_s[1:])
+        row = {
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "mesh": describe(m),
+            "batch": w["batch"], "seq": w["seq"], "n_microbatches": w["n_microbatches"],
+            "remat": w["remat"], "loss_chunk": w["loss_chunk"], "init_s": init_s,
+            "losses": losses, "step_s": step_s, "base_bytes": base, "rest_bytes": rest,
+            "peak_bytes": peak, "received_bytes_per_step": received,
+            "received_bytes_by_kind": by_kind, "model_flops": flops,
+            "bound_ms": 1e3 * flops / (sh.axis_size(m, ("data", "model")) * HW().peak_flops),
+            "repeat_differing": differ, "profile": profile,
+        }
+        if warm:
+            row["step_ms_median"] = statistics.median(warm)
+            row["step_ms_p95"] = warm[min(len(warm) - 1, math.ceil(0.95 * len(warm)) - 1)]
+        out["whole"][label] = row
+        dist.barrier()
     out["launches"] = read_launches()
     return out
 
 
 def phase_lm_mesh() -> dict:
     """``--only build,lm_mesh`` on 4 cards: LM training on a mesh, one
-    process per card over NCCL (module docstring).  Fewer cards: an error."""
+    process per card over NCCL (module docstring).  Fewer cards: an error.
+    The phase's row is printed before the checks of its traces, so a cell
+    that misses its trace shows by how much."""
     import torch
 
     n = torch.cuda.device_count()
     check(n >= 4, f"lm_mesh needs 4 cards, found {n}")
     p = LM_MESH
     w = p["whole"]
-    predictions = _Predictions({"whole": dict(
-        arch=p["arch"], cfg=_lm_config(p["arch"]), mesh=(4, 1),
+    labels = {"x".join(map(str, s)): s for s in w["shapes"]}
+    predictions = _Predictions({label: dict(
+        arch=p["arch"], cfg=_lm_config(p["arch"]), mesh=s,
         shape=("train_4k", w["seq"], w["batch"], "train"),
         tcfg=dict(n_microbatches=w["n_microbatches"], remat=w["remat"],
-                  loss_chunk=w["loss_chunk"]))})
+                  loss_chunk=w["loss_chunk"])) for label, s in labels.items()})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
     try:
         ranks = _spawn_world(tmp, (2, 2), p, body="_lm_mesh_rank")
-        predicted = predictions.result()["whole"]
+        predicted = predictions.result()
     finally:
         predictions.close()
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = ranks[0]
     parity = lambda r: {**{f"gemma2 {k}": v for k, v in r["gemma2"].items()},  # noqa: E731
-                        "granite 2x2": r["granite"]}
+                        **{f"granite {k}": v for k, v in r["granite"].items()}}
     for label, row in parity(r0).items():
         check(row["loss_rel_err"] <= p["loss_rel"] and row["grad_norm_rel_err"] <= p["loss_rel"]
               and row["grad_max_rel_err"] <= p["grad_rel"], f"lm_mesh parity {label}: {row}")
@@ -3574,25 +3641,50 @@ def phase_lm_mesh() -> dict:
                       zip(r0["resumed_losses"], r0["mesh_losses"][r0["resumed_from"]:]))
     check(r0["resumed_from"] == p["cut_at"] and resumed_err <= p["loss_rel"],
           f"lm_mesh: the resumed run's losses {r0['resumed_losses']} vs {r0['mesh_losses']}")
-    whole = r0["whole"]
-    peaks = [r["whole"]["peak_bytes"] for r in ranks]
-    check(all(math.isfinite(x) for x in whole["losses"]), f"lm_mesh: losses {whole['losses']}")
-    check(max(peaks) < 80e9, f"lm_mesh: per-rank peaks {peaks}")
     cost = r0["moe_cost"]
     check(all(math.isfinite(x) for run in cost.values() for x in run["losses"]),
           f"lm_mesh: granite losses {cost}")
     for r in ranks:
         check(not any(r["launches"].values()), f"lm_mesh: kernels launched {r['launches']}")
-    step_bytes = set(whole["received_bytes_per_step"])
-    check(len(step_bytes) == 1, f"lm_mesh: steps moved different bytes {step_bytes}")
-    dry_run = _held("lm_mesh whole", {"argument_bytes": whole["rest_bytes"],
-                                      "peak_bytes": whole["peak_bytes"] - whole["base_bytes"],
-                                      "collective_bytes": step_bytes.pop()}, predicted)
-    tokens = whole["batch"] * whole["seq"]
+    tokens = w["batch"] * w["seq"]
+    first = r0["whole"]["4x1"]["losses"][0]
+    wholes, misses = {}, []
+    for label in labels:
+        whole = r0["whole"][label]
+        peaks = [r["whole"][label]["peak_bytes"] for r in ranks]
+        check(all(math.isfinite(x) for x in whole["losses"]),
+              f"lm_mesh {label}: losses {whole['losses']}")
+        check(max(peaks) < 80e9, f"lm_mesh {label}: per-rank peaks {peaks}")
+        check(not whole["repeat_differing"],
+              f"lm_mesh {label}: a repeated pass differs: {whole['repeat_differing'][:4]}")
+        check(_rel(whole["losses"][0], first) <= w["first_loss_rel"],
+              f"lm_mesh {label}: first loss {whole['losses'][0]} vs (4, 1)'s {first}")
+        step_bytes = set(whole["received_bytes_per_step"])
+        check(len(step_bytes) == 1, f"lm_mesh {label}: steps moved different bytes {step_bytes}")
+        try:
+            dry_run = _held(f"lm_mesh whole {label}",
+                            {"argument_bytes": whole["rest_bytes"],
+                             "peak_bytes": whole["peak_bytes"] - whole["base_bytes"],
+                             "collective_bytes": step_bytes.pop()}, predicted[label])
+        except RuntimeError as e:
+            misses.append(str(e))
+            dry_run = {"miss": str(e), "predicted": predicted[label]}
+        row = {**whole, "peak_bytes_per_rank": peaks,
+               "rest_bytes_per_rank": [r["whole"][label]["rest_bytes"] for r in ranks],
+               "received_bytes_per_step_per_rank": [r["whole"][label]["received_bytes_per_step"]
+                                                    for r in ranks],
+               "tokens_per_step": tokens, "first_loss_rel_err_vs_4x1": _rel(whole["losses"][0],
+                                                                           first),
+               "dry_run": dry_run}
+        if "step_ms_median" in whole:
+            row["tokens_per_s"] = tokens / (whole["step_ms_median"] / 1e3)
+            row["share_of_bound"] = whole["bound_ms"] / whole["step_ms_median"]
+        wholes[label] = row
     row = {"phase": "lm_mesh", "cards": n, "backend": "nccl", "meshes": r0["meshes"],
            "gemma2_parity": r0["gemma2"], "granite_parity": r0["granite"],
            "moe_dropped": {"unsharded": r0["moe_dropped_unsharded"],
-                           "mesh_per_rank": [r["moe_dropped_mesh_rank"] for r in ranks]},
+                           "mesh_per_rank": {k: [r["granite"][k]["dropped_rank"] for r in ranks]
+                                             for k in r0["granite"]}},
            "manual_vs_gspmd_max_abs": r0["manual_vs_gspmd_max_abs"],
            "checkpoint": {"cut_at": p["cut_at"], "mesh_losses": r0["mesh_losses"],
                           "resumed_losses": r0["resumed_losses"], "max_rel_err": resumed_err},
@@ -3603,16 +3695,10 @@ def phase_lm_mesh() -> dict:
                         "gspmd_loss_rel_err_vs_none": max(
                             _rel(a, b) for a, b in zip(cost["gspmd"]["losses"],
                                                        cost["none"]["losses"]))},
-           "whole": {**whole, "peak_bytes_per_rank": peaks,
-                     "rest_bytes_per_rank": [r["whole"]["rest_bytes"] for r in ranks],
-                     "received_bytes_per_step_per_rank": [r["whole"]["received_bytes_per_step"]
-                                                          for r in ranks],
-                     "tokens_per_step": tokens, "dry_run": dry_run},
-           "launches": [r["launches"] for r in ranks], "spawn_s": r0["spawn_s"]}
-    if "step_ms_median" in whole:
-        row["whole"]["tokens_per_s"] = tokens / (whole["step_ms_median"] / 1e3)
-        row["whole"]["share_of_bound"] = whole["bound_ms"] / whole["step_ms_median"]
+           "whole": wholes, "launches": [r["launches"] for r in ranks],
+           "spawn_s": r0["spawn_s"]}
     emit(row)
+    check(not misses, f"lm_mesh: cells missed their traces: {misses}")
     return row
 
 

@@ -9,10 +9,11 @@ standard serve split: cross K/V are computed once at prefill and reused
 every decode step.  Layers run in order (``cfg.scan_layers`` has no
 effect); caches are one dict per decoder layer.  Under a mesh each block
 gathers its weights where it runs (``sharding_ctx.gathered``); under a
-serve scope that splits "model", self- and cross-attention, the MLP, the
-embedding and the tied head compute on this rank's blocks
-(``models.layers``), and the caches are its blocks of the reference's
-layout (the cross K/V as ``cross_k``/``cross_v``).
+scope that splits "model" (training and serving), the encoder's and the
+decoder's self- and cross-attention, the MLPs, the embedding and the tied
+head compute on this rank's blocks (``models.layers``), and a serve
+step's caches are its blocks of the reference's layout (the cross K/V as
+``cross_k``/``cross_v``).
 """
 from __future__ import annotations
 
@@ -117,6 +118,9 @@ def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor) -> torch.Tens
 # ------------------------------------------------------------------ decoder
 
 def _cross_kv(p_cross: L.Attention, memory: torch.Tensor):
+    """Cross K/V of the memory: this rank's kv heads where ``wk``/``wv`` are
+    split over "model", else every head."""
+    memory = S.split_input(memory, S.split_of(p_cross, "wk"))
     return L.proj_in(memory, p_cross.wk), L.proj_in(memory, p_cross.wv)
 
 
@@ -151,7 +155,8 @@ def forward_train(cfg: ModelConfig, params: EncDec, frames, tokens, *, return_hi
     with S.gathered(params, recurse=False):
         memory = encode(cfg, params, frames)
         s = tokens.shape[1]
-        x = params.embed[tokens] + params.dec_pos[None, :s]
+        x = (L.embed_lookup(params.embed, tokens, S.split_of(params, "embed"))
+             + params.dec_pos[None, :s])
         mask = L.causal_mask(s, device=x.device)
         for p in params.decoder:
             with S.gathered(p):

@@ -209,7 +209,7 @@ def head_logits(cfg: ModelConfig, hidden: torch.Tensor, head: torch.Tensor,
     softcap, pad mask.  With ``split`` (``sharding_ctx.split_of`` the head)
     ``head`` is this rank's block of the vocab columns, and so are the
     logits (the mask at their global column indices)."""
-    logits = (hidden @ head).float()
+    logits = (S.split_input(hidden, split) @ head).float()
     logits = final_softcap(cfg, logits)
     n = head.shape[-1]
     mask = vocab_pad_mask(cfg, hidden.device, split.index * n if split is not None else 0, n)
@@ -578,25 +578,31 @@ def attention(
     causal: bool = True,
     kv_slots_split: bool = False,           # kv_override holds this rank's slots only
 ) -> tuple[torch.Tensor, LayerCache | None]:
-    """Self- or cross-attention.  Under a serve scope that splits "model"
+    """Self- or cross-attention.  Under a scope that splits "model"
     (``sharding_ctx.split_of``) this rank computes its block of the q heads
     where ``wq``/``bq``/``wo`` are split, with its kv heads where
     ``wk``/``wv``/``bk``/``bv`` are split too (each q head's kv head picked
     out where they are whole), and ``wo``'s outputs are summed over
     "model".  K/V split on slots (a decode cache, or ``kv_slots_split``
-    cross K/V): flash-decoding over every head, then this rank's heads."""
+    cross K/V): flash-decoding over every head, then this rank's heads.  A
+    cross K/V of ``kv_override`` is computed by the caller the same way
+    (its kv heads where ``wk``/``wv`` are split, else whole)."""
     b, s, _ = x.shape
 
-    q = proj_in(x, p.wq)
+    heads = S.split_of(p, "wq")
+    xs = S.split_input(x, heads)
+    q = proj_in(xs, p.wq)
     if p.bq is not None:
         q = q + p.bq
-    k, v = kv_proj(p, x) if kv_override is None else kv_override
+    if kv_override is None:
+        k, v = kv_proj(p, x if S.split_of(p, "wk") is None else xs)
+    else:
+        k, v = kv_override
     if angles is not None:
         q = apply_rope(q, angles)
         if kv_override is None:
             k = apply_rope(k, angles)
 
-    heads = S.split_of(p, "wq")
     on_slots = kv_slots_split
     new_cache = None
     if cache is not None:
@@ -615,7 +621,10 @@ def attention(
             ctx = ctx.narrow(2, heads.index * q.shape[2], q.shape[2])
         return _out_proj(p, ctx), new_cache
     if heads is not None and S.split_of(p, "wk") is None:
-        k, v = _kv_for_heads(cfg, k, v, heads.index * q.shape[2], q.shape[2])
+        # whole k/v: each rank's q heads read theirs, so each k/v cotangent
+        # is partial on a rank and summed over "model"
+        k, v = _kv_for_heads(cfg, S.split_input(k, heads), S.split_input(v, heads),
+                             heads.index * q.shape[2], q.shape[2])
 
     # Flash-style path: full-sequence attention (train/prefill/encoder) with
     # chunking enabled; decode and cross-attention keep the dense path.
@@ -645,6 +654,8 @@ class MLP(nn.Module):
 
 
 def mlp(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    split = S.split_of(p, "w_out")
+    x = S.split_input(x, split)
     up = x @ p.w_in
     if cfg.activation == "silu":
         gated = F.silu(x @ p.w_gate) * up
@@ -655,7 +666,6 @@ def mlp(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(cfg.activation)
     out = gated @ p.w_out
-    split = S.split_of(p, "w_out")
     if split is not None:
         # w_in and w_gate by columns, w_out by rows: one sum over "model"
         out = sh.tp_sum(out, split.mesh)

@@ -18,12 +18,16 @@ on a data axis of n ranks each rank does the expert work, and holds the
 buffer, of the whole batch, n times its share.  ``moe_impl="manual"``
 routes each data row on its own and does not pay this.
 
-Under a serve scope that splits "model" (``sharding_ctx.split_of``) the
-router's columns and the experts are the rank's "model" blocks: the
-router's logits are gathered over "model" (every rank routes all E
-experts, the same routes on each), each rank dispatches only the routes
-whose expert is one of its ``E / tp`` into an ``(E / tp) * C`` buffer, and
-the ranks' combined outputs are summed over "model".
+Under a scope that splits "model" (``sharding_ctx.split_of``; training
+and serving) the router's columns and the experts are the rank's "model"
+blocks: the router's logits are gathered over "model" (every rank routes
+all E experts, the same routes on each), each rank dispatches only the
+routes whose expert is one of its ``E / tp`` into an ``(E / tp) * C``
+buffer, and the ranks' combined outputs are summed over "model".  In
+training the tokens and the routes' gates enter the rank's work through
+``split_input`` (their cotangents summed over "model"), the gathered
+logits' backward keeps the rank's columns, and the sum's is the identity;
+every rank issues them whether or not its experts received a token.
 
 ``moe_layer_manual`` (``moe_impl="manual"``) is the reference's
 expert-parallel layer: each rank of a data row routes the row's tokens
@@ -77,8 +81,9 @@ class Route(NamedTuple):
 
 def _router_probs(p: MoE, xt: torch.Tensor) -> torch.Tensor:
     """Router probabilities (T, E) of tokens ``xt`` (T, d); a router split
-    on its expert columns gives this rank's logits, gathered over
-    "model"."""
+    on its expert columns gives this rank's logits, gathered over "model"
+    (the caller has passed ``xt`` through ``split_input``, once for the
+    router and the experts)."""
     logits = xt.float() @ p.router
     split = S.split_of(p, "router")
     return torch.softmax(logits if split is None else S.model_whole(logits, 1), dim=-1)
@@ -193,12 +198,15 @@ def moe_layer(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, 
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
+    experts = S.split_of(p, "w_in")
+    # the tokens and the whole routes' gates enter the rank's router columns
+    # and experts; the aux statistic reads the probabilities whole
+    xt = S.split_input(xt, experts)
     probs = _router_probs(p, xt)                                    # (T, E)
     shards = _token_shards()
     n_tokens = _global_tokens(t, shards)
-    routes, frac_dispatched = moe_route(cfg, probs, shards)
+    routes, frac_dispatched = moe_route(cfg, S.split_input(probs, experts), shards)
     cap = _capacity(cfg, n_tokens)
-    experts = S.split_of(p, "w_in")
     if experts is not None:     # this rank's experts only
         n_local = p.w_in.shape[0]
         routes = [_local_route(r, experts.index * n_local, n_local) for r in routes]
@@ -222,22 +230,22 @@ def _moe_local(cfg: ModelConfig, p: MoE, xt: torch.Tensor, mesh):
     row's tokens ``xt`` (T, d) against the full router, dispatched to the
     rank's ``E / tp`` consecutive experts (``p``'s expert weights are those
     blocks) under the local capacity; the combined output summed over
-    "model".  The router's probabilities and the tokens enter the local
-    dispatch through ``sum_grads``: each model rank's gradient through its
-    own experts' gates is partial and is summed over the row, while the
-    aux statistic's gradient, the same on every model rank, is counted
-    once."""
+    "model".  The tokens enter the router's columns and the local dispatch,
+    and the router's probabilities the local routes, through ``tp_enter``:
+    each model rank's gradient through its own columns and experts' gates
+    is partial and is summed over the row, while the aux statistic's
+    gradient, the same on every model rank, is counted once."""
     moe = cfg.moe
     e = moe.n_experts
     t, d = xt.shape
     n_local = p.w_in.shape[0]
     first = sh.axis_index(mesh, "model") * n_local
 
-    probs = _router_probs(p, xt)
+    x_local = sh.tp_enter(xt, mesh)
+    probs = _router_probs(p, x_local)
     # capacity against this data row's tokens (each row routes on its own)
     cap = max(4, int(moe.capacity_factor * t * moe.top_k / e) + 4)
-    remaining = sh.sum_grads(probs, mesh, "model")
-    x_local = sh.sum_grads(xt, mesh, "model")
+    remaining = sh.tp_enter(probs, mesh)
     expert_fill = torch.zeros((e,), dtype=torch.int32, device=xt.device)
     frac_dispatched = torch.zeros((e,), dtype=torch.float32, device=xt.device)
     routes = []
@@ -263,7 +271,7 @@ def _moe_local(cfg: ModelConfig, p: MoE, xt: torch.Tensor, mesh):
     slots = [r.dest_e.long() * cap + r.dest_c.long() for r in routes]
     combined = _dispatch(n_local * cap, x_local, routes, slots, p.w_in, p.w_gate, p.w_out)
     # each token's experts live on exactly the ranks that contributed
-    combined = sh.sum_parts(combined, mesh, "model")
+    combined = sh.tp_sum(combined, mesh)
     aux = torch.sum(frac_dispatched / moe.top_k * torch.mean(probs, dim=0)) * e
     return combined.to(xt.dtype), aux
 

@@ -18,13 +18,16 @@ The reference's ``lax.scan`` over time is a loop here, one step per token,
 with the state in float32.  Decode state: h (B, W) plus the conv ring (B,
 width-1, W).
 
-Under a serve scope that splits "model" (``sharding_ctx.split_of``) a rank
-computes on its blocks of the "state" channels: its columns of ``w_branch``
-(which lie in the gate half or the signal half: an all-to-all re-pairs each
-rank's channels' gate and signal), its channels of ``conv``, ``lam``,
-``b_a``, ``b_i`` and of the states, its rows of ``w_a``/``w_i`` (one
-reduce-scatter gives its columns of both gates) and of ``w_out`` (one sum
-over "model").
+Under a scope that splits "model" (``sharding_ctx.split_of``; training and
+serving) a rank computes on its blocks of the "state" channels: its columns
+of ``w_branch`` (which lie in the gate half or the signal half: an
+all-to-all re-pairs each rank's channels' gate and signal), its channels of
+``conv``, ``lam``, ``b_a``, ``b_i`` and of the states, its rows of
+``w_a``/``w_i`` (one reduce-scatter gives its columns of both gates) and of
+``w_out`` (one sum over "model").  In training each collective is its
+autograd pair (``runtime.sharding``): the reverse all-to-all, an all-gather
+of the gates' cotangents, the identity after ``w_out``, and a sum of the
+input's partial cotangents before ``w_branch``.
 """
 from __future__ import annotations
 
@@ -86,8 +89,8 @@ def _branches(p: RGLRU, x: torch.Tensor, width: int) -> tuple[torch.Tensor, torc
     split).  ``w_branch`` is [gate | signal] cut in column blocks, so a
     rank's columns hold other ranks' channels: each rank sends each other
     the columns of its channels it holds (``_pairing``)."""
-    branch = x @ p.w_branch
     cols = S.split_of(p, "w_branch")
+    branch = S.split_input(x, cols) @ p.w_branch
     if cols is None:            # whole, and so are the channels
         return torch.chunk(branch, 2, dim=-1)
     if S.split_of(p, "lam") is None:     # 2 * width divides "model", width does not

@@ -8,13 +8,16 @@ over time is a loop here).  Token-shift interpolation uses the Finch LoRA
 form: one fused ``d -> 5*rank`` projection, tanh, and five ``rank -> d``
 heads.
 
-Under a serve scope that splits "model" (``sharding_ctx.split_of``) the
-time mix computes the rank's heads: its blocks of ``w_r``/``w_k``/``w_v``/
-``w_g``/``decay_b`` and of the ``wkv`` state, its heads of the whole
-``decay_base``/``bonus``/``ln_x``, and ``w_o``'s rows, summed over "model";
-the channel mix its columns of ``cm_k`` and rows of ``cm_v``, summed over
-"model" before the receptance gate.  The token-shift LoRA and ``cm_r`` have
-no "model" dim: every rank computes them whole.
+Under a scope that splits "model" (``sharding_ctx.split_of``; training and
+serving) the time mix computes the rank's heads: its blocks of
+``w_r``/``w_k``/``w_v``/``w_g``/``decay_b`` and of the ``wkv`` state, its
+heads of the whole ``decay_base``/``bonus``/``ln_x`` (``model_block``: in
+training their blocks' gradients are gathered, so each rank's gradient of
+them is whole), and ``w_o``'s rows, summed over "model"; the channel mix
+its columns of ``cm_k`` and rows of ``cm_v``, summed over "model" before
+the receptance gate.  The token-shift LoRA and ``cm_r`` have no "model"
+dim: every rank computes them whole, and the whole views and LoRA output
+enter the split projections through ``split_input``.
 """
 from __future__ import annotations
 
@@ -109,6 +112,7 @@ def _decay(p: RWKV, x_w: torch.Tensor, heads: int | None = None) -> torch.Tensor
     the exponent clipped to [-10, 4]; of the rank's heads where ``heads``
     (0, the heads dim of the whole ``decay_base``) is split."""
     t = torch.tanh(x_w @ p.decay_a)
+    t = S.split_input(t, S.split_of(p, "decay_b"))
     core = S.model_block(p.decay_base, heads)[None, None] + proj_in(t, p.decay_b).float()
     return torch.exp(-torch.exp(torch.clamp(core, -10.0, 4.0)))
 
@@ -140,9 +144,11 @@ def _group_norm(y: torch.Tensor, g: torch.Tensor, eps: float = 64e-5) -> torch.T
 def _time_mix(cfg: ModelConfig, p: RWKV, x: torch.Tensor, shift_prev, wkv_state):
     b = x.shape[0]
     hd = cfg.rwkv_head_dim
-    heads = 0 if S.split_of(p, "w_r") is not None else None
+    split = S.split_of(p, "w_r")
+    heads = 0 if split is not None else None
     x_prev = _token_shift(x, shift_prev)
     x_w, x_k, x_v, x_r, x_g = _mix_targets(p, x, x_prev)
+    x_k, x_v, x_r, x_g = (S.split_input(t, split) for t in (x_k, x_v, x_r, x_g))
     r = proj_in(x_r, p.w_r)
     k = proj_in(x_k, p.w_k)
     v = proj_in(x_v, p.w_v)
@@ -153,7 +159,6 @@ def _time_mix(cfg: ModelConfig, p: RWKV, x: torch.Tensor, shift_prev, wkv_state)
     y, wkv_state = _wkv_scan(r, k, v, w, S.model_block(p.bonus, heads), wkv_state)
     y = _group_norm(y, S.model_block(p.ln_x, heads)).to(x.dtype) * g
     out = proj_out(y, p.w_o)
-    split = S.split_of(p, "w_o")
     if split is not None:
         out = sh.tp_sum(out, split.mesh)
     return out, x[:, -1], wkv_state
@@ -164,9 +169,9 @@ def _channel_mix(p: RWKV, x: torch.Tensor, shift_prev):
     xx = x_prev - x
     x_k = x + xx * p.cm_mu_k[None, None]
     x_r = x + xx * p.cm_mu_r[None, None]
-    k = torch.square(torch.relu(x_k @ p.cm_k))
-    kv = k @ p.cm_v
     split = S.split_of(p, "cm_v")
+    k = torch.square(torch.relu(S.split_input(x_k, split) @ p.cm_k))
+    kv = k @ p.cm_v
     if split is not None:
         # cm_k by columns, cm_v by rows: the sum comes before the gate
         kv = sh.tp_sum(kv, split.mesh)

@@ -16,9 +16,10 @@ Three execution modes share the block code:
     decode  — S=1 against caches (serve step N); attention caches are
               written in place
 
-Under a serve scope that splits "model" (``sharding_ctx.model_split``)
-every cache is this rank's block of the reference's layout: attention
-caches as ``layers.init_layer_cache`` lays them out, recurrent states on
+Under a scope that splits "model" (``sharding_ctx.model_split``; training
+and serving) every layer computes on its "model" blocks.  A serve step's
+caches are this rank's blocks of the reference's layout: attention caches
+as ``layers.init_layer_cache`` lays them out, recurrent states on
 "state"/heads.  The rg-lru and rwkv mixes compute on their blocks of the
 channels and heads, so a layer steps its state blocks as they are.
 """

@@ -18,20 +18,38 @@ out-shardings.  ``sum_over`` adds a partial over mesh axes in rank order, so
 the sum does not depend on the collective library's reduction order.
 
 The LM wing trains through differentiable counterparts: ``gather_param``
-(a parameter's full value from the ranks' blocks; its backward is the
-gradient reduce of FSDP), ``psum`` (a sum over data axes whose backward is
-the same sum), and for work split over "model" inside one data row
-``sum_parts`` (forward sum, backward identity) and ``sum_grads`` (forward
-identity, backward sum).
+(a parameter's value over the data axes from the ranks' blocks; its
+backward is the gradient reduce of FSDP) and ``psum`` (a sum over data
+axes whose backward is the same sum).
 
-The LM serve steps split every layer's weights over "model" and run under
-``torch.inference_mode()``, through collectives that never reach autograd:
-``gather_block`` (a parameter's value over the axes it is not kept local
-on), ``tp_sum`` (the sum of row-parallel partials), ``tp_scatter_sum`` (the
-rank's block of such a sum), ``tp_max`` (the max of a partial softmax),
-``tp_all_to_all`` (blocks of an activation exchanged between ranks) and
-``vocab_lookup`` (an embedding lookup on vocab blocks).  Each skips an axis
-of size 1.
+Both LM steps split every layer's weights over "model": each rank computes
+on its "model" blocks, through ``gather_block`` (a parameter's value over
+the axes it is not kept local on; no autograd), ``tp_sum`` (the sum of
+row-parallel partials), ``tp_scatter_sum`` (the rank's block of such a
+sum), ``tp_all_to_all`` (blocks of an activation exchanged between ranks),
+``tp_gather`` (the whole of a tensor split over an axis), ``tp_block`` (the
+rank's block of a tensor held whole), ``tp_enter`` (a tensor held whole
+entering work split over an axis), ``tp_max`` (the max of a partial
+softmax, never differentiated) and ``vocab_lookup`` (an embedding lookup on
+vocab blocks).  Each skips an axis of size 1.  Serving runs them under
+``torch.inference_mode()`` as plain collectives.  Where autograd records
+(grad mode on, an input that requires grad) each is a
+``torch.autograd.Function`` whose backward follows one rule for
+cotangents: *a tensor that every rank of the axis holds whole carries the
+same cotangent on every rank of it* (the loss, held whole, has cotangent 1
+on each).  So
+
+- ``tp_sum`` (all-reduce of partials) -> the cotangent to each part as it is;
+- ``tp_enter`` (the identity) -> the sum of the ranks' partial cotangents
+  (an all-reduce), where a whole tensor meets a rank's block of a weight;
+- ``tp_scatter_sum`` (reduce-scatter) -> an all-gather along the same dim;
+- ``tp_all_to_all`` -> the reverse all-to-all, split sizes swapped;
+- ``tp_gather`` (all-gather) -> the rank's block of the cotangent;
+- ``tp_block`` (a narrow) -> an all-gather of the blocks' cotangents.
+
+Every rank of the axis issues the same collectives in the same order, in
+the forward, the backward and a checkpointed group's recompute alike: none
+depends on the data (a rank whose experts received no token still sums).
 
 LM parameters use MaxText-style *logical* axes mapped to physical axes by
 ``LogicalAxisRules``.
@@ -81,10 +99,11 @@ __all__ = [
     "tp_scatter_sum",
     "tp_max",
     "tp_all_to_all",
+    "tp_gather",
+    "tp_block",
+    "tp_enter",
     "vocab_lookup",
     "psum",
-    "sum_parts",
-    "sum_grads",
     "is_lead",
     "broadcast_object",
     "gather_objects",
@@ -448,53 +467,46 @@ def _all_reduce(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
 
 
 class _GatherParam(torch.autograd.Function):
-    """Forward: the parameter's value over every axis of its spec but the
-    ``keep`` axes, from the ranks' blocks.  Backward: the rank's gradient of
-    that value -> the rank's block of the gradient of the mean of the data
-    rows' losses: cut to the rank's block on the axes its row computes
-    redundantly ("model"), then summed over the data axes and divided by
+    """Forward: the parameter's value over the data axes of its spec, from
+    the ranks' blocks (its "model" block stays the rank's).  Backward: the
+    rank's gradient of that value -> the rank's block of the gradient of the
+    mean of the data rows' losses: summed over the data axes and divided by
     their size.  A data axis in the spec is reduced by ``reduce_scatter``
     (the FSDP way: each rank receives its block only), one the leaf is
     replicated over by ``all_reduce``."""
 
     @staticmethod
-    def forward(ctx, block, mesh, spec, keep):
-        ctx.mesh, ctx.spec, ctx.keep = mesh, spec, keep
-        return gather_block(block, mesh, spec, keep)
+    def forward(ctx, block, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        return gather_block(block, mesh, spec, keep=("model",))
 
     @staticmethod
     def backward(ctx, grad):
-        mesh, spec, keep = ctx.mesh, ctx.spec, ctx.keep
+        mesh, spec = ctx.mesh, ctx.spec
         data = batch_axes(mesh)
-        g = grad
-        for dim, entry in enumerate(spec):          # cut the model-axis blocks
-            names = tuple(n for n in _names(entry) if n not in data and n not in keep)
-            if names and axis_size(mesh, names) > 1:
-                if len(names) != len(_names(entry)):
-                    raise ValueError(f"spec entry {entry!r} mixes data and model axes")
-                step = g.shape[dim] // axis_size(mesh, names)
-                g = g.narrow(dim, axis_index(mesh, names) * step, step)
         n_data = axis_size(mesh, data)
         if n_data == 1:
-            return g.contiguous(), None, None, None
-        for name in data:                           # reduce over the data axes
+            return grad.contiguous(), None, None
+        g = grad
+        for name in data:
             if axis_size(mesh, name) == 1:
                 continue
             dims = [d for d, e in enumerate(spec) if name in _names(e)]
             g = _reduce_scatter(g, mesh, name, dims[0]) if dims else _all_reduce(g, mesh, name)
-        return g / n_data, None, None, None
+        return g / n_data, None, None
 
 
-def gather_param(block: torch.Tensor, mesh, spec, keep: tuple[str, ...] = ()) -> torch.Tensor:
-    """A parameter's full value (but for its ``keep`` axes) from this rank's
-    ``block`` under ``spec``, differentiably (``_GatherParam``).  On a mesh
-    whose axes are all of size 1 it is ``block`` itself."""
+def gather_param(block: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """A parameter's value over the data axes of ``spec`` from this rank's
+    ``block`` (a rank computes on its "model" block), differentiably
+    (``_GatherParam``).  On a mesh whose axes are all of size 1 it is
+    ``block`` itself."""
     if all(int(s) == 1 for s in mesh.shape):
         return block
-    return _GatherParam.apply(block, mesh, PartitionSpec(*spec), tuple(keep))
+    return _GatherParam.apply(block, mesh, PartitionSpec(*spec))
 
 
-# ------------------------------------------------ inference collectives (LM)
+# ------------------------------------------ tensor-parallel collectives (LM)
 
 
 def gather_block(block: torch.Tensor, mesh, spec, keep: tuple[str, ...] = ()) -> torch.Tensor:
@@ -517,11 +529,118 @@ def _reduce(x: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
     return out
 
 
+def _recording(*xs) -> bool:
+    """Whether autograd records an op on ``xs`` (grad mode on and one of
+    them requires grad): the collectives then take their autograd pair."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class _TpSum(torch.autograd.Function):
+    """All-reduce sum of the partials (into a copy: the input may be saved
+    for another backward); backward the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _TpEnter(torch.autograd.Function):
+    """The identity; backward the all-reduce sum of the partial cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _TpScatterSum(torch.autograd.Function):
+    """Reduce-scatter along ``dim``; backward an all-gather along it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        return _reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_cat(grad, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _TpGather(torch.autograd.Function):
+    """All-gather along ``dim``; backward the rank's block of the
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis, ctx.n = mesh, dim, axis, x.shape[dim]
+        return _gather_cat(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        first = axis_index(ctx.mesh, ctx.axis) * ctx.n
+        return grad.narrow(ctx.dim, first, ctx.n).contiguous(), None, None, None
+
+
+class _TpBlock(torch.autograd.Function):
+    """The rank's block along ``dim``; backward an all-gather of the
+    blocks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        n = x.shape[dim] // axis_size(mesh, axis)
+        return x.narrow(dim, axis_index(mesh, axis) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_cat(grad.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _TpAllToAll(torch.autograd.Function):
+    """``_all_to_all`` of the parts; backward the reverse exchange: the
+    cotangent cut by what each rank sent, sent back."""
+
+    @staticmethod
+    def forward(ctx, mesh, dim, axis, recv, *parts):
+        ctx.mesh, ctx.dim, ctx.axis, ctx.recv = mesh, dim, axis, recv
+        ctx.sent = tuple(int(p.shape[dim]) for p in parts)
+        return _all_to_all(list(parts), recv, mesh, dim, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim = ctx.dim
+        back = list(torch.split(grad, list(ctx.recv), dim=dim))
+        got = _all_to_all(back, ctx.sent, ctx.mesh, dim, ctx.axis)
+        return (None, None, None, None, *torch.split(got, list(ctx.sent), dim=dim))
+
+
 def tp_sum(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """The sum of every rank's partial ``x`` over one mesh axis (an
-    ``all_reduce``; the same bits on every rank).  ``x`` is consumed: a
-    contiguous ``x`` is reduced in place."""
+    ``all_reduce``; the same bits on every rank).  Without autograd ``x``
+    is consumed: a contiguous ``x`` is reduced in place."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    if _recording(x):
+        return _TpSum.apply(x, mesh, axis)
     return _reduce(x, mesh, axis, dist.ReduceOp.SUM)
+
+
+def tp_enter(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """``x``, held whole on every rank of one mesh axis, entering work split
+    over it (a rank's block of a weight): the identity, whose backward sums
+    the ranks' partial cotangents.  ``x`` itself where autograd does not
+    record."""
+    if axis_size(mesh, axis) == 1 or not _recording(x):
+        return x
+    return _TpEnter.apply(x, mesh, axis)
 
 
 def tp_scatter_sum(x: torch.Tensor, mesh, dim: int, axis: str = "model") -> torch.Tensor:
@@ -529,23 +648,38 @@ def tp_scatter_sum(x: torch.Tensor, mesh, dim: int, axis: str = "model") -> torc
     ``x`` over one mesh axis (a ``reduce_scatter``)."""
     if axis_size(mesh, axis) == 1:
         return x
+    if _recording(x):
+        return _TpScatterSum.apply(x, mesh, dim, axis)
     return _reduce_scatter(x, mesh, axis, dim)
+
+
+def tp_gather(x: torch.Tensor, mesh, dim: int, axis: str = "model") -> torch.Tensor:
+    """The whole tensor on every rank of one mesh axis from each rank's
+    block along ``dim`` (an ``all_gather``)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    if _recording(x):
+        return _TpGather.apply(x, mesh, dim, axis)
+    return _gather_cat(x.contiguous(), mesh, axis, dim)
+
+
+def tp_block(x: torch.Tensor, mesh, dim: int, axis: str = "model") -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, held whole on every rank
+    of one mesh axis (contiguous)."""
+    if _recording(x) and axis_size(mesh, axis) > 1:
+        return _TpBlock.apply(x, mesh, dim, axis)
+    n = x.shape[dim] // axis_size(mesh, axis)
+    return x.narrow(dim, axis_index(mesh, axis) * n, n).contiguous()
 
 
 def tp_max(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """The elementwise max of every rank's ``x`` over one mesh axis
-    (consumed as in ``tp_sum``)."""
-    return _reduce(x, mesh, axis, dist.ReduceOp.MAX)
+    (consumed as in ``tp_sum``, but for a copy where ``x`` requires grad);
+    never differentiated."""
+    return _reduce(x.detach().clone() if x.requires_grad else x, mesh, axis, dist.ReduceOp.MAX)
 
 
-def tp_all_to_all(parts: list, recv: list, mesh, dim: int, axis: str = "model") -> torch.Tensor:
-    """``parts[j]`` sent to rank j of one mesh axis, for every j: the
-    concatenation along ``dim`` of what each rank sent this one, in rank
-    order, of ``recv[i]`` slices from rank i (an ``all_to_all``; a part
-    may be empty).  Recorded with the bytes the rank sends to the others."""
-    n = axis_size(mesh, axis)
-    if n == 1:
-        return parts[0]
+def _all_to_all(parts: list, recv, mesh, dim: int, axis: str) -> torch.Tensor:
     src = torch.cat([p.movedim(dim, 0) for p in parts], dim=0).contiguous()
     out = torch.empty((sum(recv), *src.shape[1:]), dtype=src.dtype, device=src.device)
     dist.all_to_all_single(out, src, output_split_sizes=list(recv),
@@ -555,6 +689,18 @@ def tp_all_to_all(parts: list, recv: list, mesh, dim: int, axis: str = "model") 
     _record("all-to-all", src.numel(), src.dtype, mesh, axis,
             wire_bytes=(src.numel() - parts[me].numel()) * src.element_size())
     return out.movedim(0, dim)
+
+
+def tp_all_to_all(parts: list, recv: list, mesh, dim: int, axis: str = "model") -> torch.Tensor:
+    """``parts[j]`` sent to rank j of one mesh axis, for every j: the
+    concatenation along ``dim`` of what each rank sent this one, in rank
+    order, of ``recv[i]`` slices from rank i (an ``all_to_all``; a part
+    may be empty).  Recorded with the bytes the rank sends to the others."""
+    if axis_size(mesh, axis) == 1:
+        return parts[0]
+    if _recording(*parts):
+        return _TpAllToAll.apply(mesh, dim, axis, tuple(int(r) for r in recv), *parts)
+    return _all_to_all(parts, recv, mesh, dim, axis)
 
 
 def vocab_lookup(block: torch.Tensor, ids: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
@@ -573,16 +719,15 @@ def vocab_lookup(block: torch.Tensor, ids: torch.Tensor, mesh, axis: str = "mode
                                                                  device=got.device)), mesh, axis)
 
 
-class _Sum(torch.autograd.Function):
+class _PSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, fwd, bwd):
-        ctx.mesh, ctx.axes, ctx.bwd = mesh, axes, bwd
-        return sum_over(x, mesh, axes) if fwd else x.clone()
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return sum_over(x, mesh, axes)
 
     @staticmethod
     def backward(ctx, grad):
-        g = sum_over(grad, ctx.mesh, ctx.axes) if ctx.bwd else grad
-        return g, None, None, None, None
+        return sum_over(grad, ctx.mesh, ctx.axes), None, None
 
 
 def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -591,25 +736,7 @@ def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     that differ between data rows."""
     if axis_size(mesh, axes) == 1:
         return x
-    return _Sum.apply(x, mesh, _names(axes), True, True)
-
-
-def sum_parts(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """``x`` is this rank's part of a value split over ``axes`` inside one
-    data row: forward the sum of the parts (rank order), backward the
-    row's cotangent to each part as it is."""
-    if axis_size(mesh, axes) == 1:
-        return x
-    return _Sum.apply(x, mesh, _names(axes), True, False)
-
-
-def sum_grads(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """``x``, replicated over ``axes`` inside one data row, feeding work
-    split over them: forward the identity, backward the sum of the ranks'
-    partial cotangents (rank order)."""
-    if axis_size(mesh, axes) == 1:
-        return x
-    return _Sum.apply(x, mesh, _names(axes), False, True)
+    return _PSum.apply(x, mesh, _names(axes))
 
 
 # ------------------------------------------------------ rank-0 decisions

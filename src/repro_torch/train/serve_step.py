@@ -48,15 +48,7 @@ from repro_torch.runtime import sharding as sh
 from repro_torch.train import partition
 from repro_torch.train import train_step as TS
 
-__all__ = ["build_prefill_step", "build_decode_step", "serve_kept", "cache_specs"]
-
-def serve_kept(cfg: ModelConfig, mesh, specs: dict) -> dict:
-    """Parameter name -> the axes the serve steps keep local: "model" for
-    every parameter (attention, the MLP and arctic's ``moe.dense``, the
-    rg-lru and rwkv mixes, the MoE's router and experts, the embedding and
-    the head), so no weight is gathered over "model".  A "model" dim that
-    does not divide is replicated in its spec, and the weight is whole."""
-    return {name: ("model",) for name in specs}
+__all__ = ["build_prefill_step", "build_decode_step", "cache_specs"]
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> list:
@@ -84,15 +76,13 @@ def _named_leaves(caches, specs, name: str = ""):
 
 
 class _MeshArm:
-    """What both mesh arms share: the parameters' specs and kept axes, the
-    batch rows', caches' and logits' layouts, and the scope the model runs
-    in."""
+    """What both mesh arms share: the parameters' specs, the batch rows',
+    caches' and logits' layouts, and the scope the model runs in."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, mesh):
         sh.check_mesh(mesh)
         self.cfg, self.shape, self.mesh = cfg, shape, mesh
         self.specs = TS.param_specs(cfg, mesh)
-        self.keep = serve_kept(cfg, mesh, self.specs)
         dp = sh.batch_axes(mesh)
         b = shape.global_batch
         self.rows = partition.divisible_sharding(mesh, sh.P(dp), (b,)).spec
@@ -108,8 +98,7 @@ class _MeshArm:
             self.cache_dims[(name, tuple(t.shape[1:]))] = sh.spec_dim(spec, "model")
         self.tp = sh.axis_size(mesh, "model")
         head = "lm_head" if "lm_head" in self.specs else "embed"
-        self.head_split = (self.tp > 1 and "model" in self.keep.get(head, ())
-                           and sh.spec_dim(self.specs[head], "model") is not None)
+        self.head_split = self.tp > 1 and sh.spec_dim(self.specs[head], "model") is not None
         self._layout = None
 
     def layout(self, model) -> S.ParamLayout:
@@ -117,7 +106,7 @@ class _MeshArm:
         reference: the step does not keep the weights alive)."""
         if self._layout is None or self._layout[0]() is not model:
             self._layout = (weakref.ref(model), S.ParamLayout(self.mesh, model, self.specs,
-                                                              self.keep, differentiable=False))
+                                                              differentiable=False))
         return self._layout[1]
 
     def scope(self, model, axes: tuple[str, ...]):

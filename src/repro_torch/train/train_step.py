@@ -13,11 +13,19 @@ backward as well.
 With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, one process per
 card) every rank holds the parameters, gradients and AdamW state as its
 blocks of the reference's layout (``train.partition``: "embed" over the
-data axes, FSDP; heads/mlp/vocab/experts over "model").  Each rank computes
-its block of the batch rows: the ranks of one "model" row compute the same
-rows with the layer's weights gathered whole, redundantly, except in the
-manual MoE, which splits the experts; tensor-parallel compute on "model" is
-not ported.  A weight's gather is differentiable
+data axes, FSDP; heads/mlp/vocab/experts/state over "model").  Each rank
+computes its block of the batch rows, and every layer computes on its
+"model" blocks, as the serve steps do (a weight is gathered over the data
+axes only: ``sharding_ctx.ParamLayout``): local q and kv heads, MLP and
+channel-mix columns and rows, rg-lru channels, rwkv6 heads, each rank's
+experts, vocab rows of the embedding and the head, with the row-parallel
+outputs summed over "model".  A weight whose "model" dim does not divide is whole there,
+and computed whole.  The collectives over "model" are autograd pairs
+(``runtime.sharding``: a tensor every "model" rank holds whole carries the
+same cotangent on each), and the loss on a split head is vocab-parallel
+(``softmax_xent``: a detached max over "model", the sum of each rank's
+exponentials, the gold logit from the rank that holds it).  A weight's
+gather over the data axes is differentiable
 (``runtime.sharding.gather_param``): its backward sums the rows' gradients
 over the data axes and keeps the rank's block, so no rank holds a full
 gradient of the whole model.  The global norm counts each element once;
@@ -45,7 +53,7 @@ from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_init, adam
 
 __all__ = ["TrainStepConfig", "softmax_xent", "loss_and_grads", "build_train_step",
            "init_train_state", "batch_shardings", "batch_rows", "param_axes_for", "param_specs",
-           "kept_local", "mesh_scope", "to_blocks"]
+           "mesh_scope", "to_blocks"]
 
 _POLICIES = {
     "none": None,
@@ -67,19 +75,44 @@ class TrainStepConfig:
     optimizer: AdamWConfig = AdamWConfig()
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor):
+def _logz_gold(logits: torch.Tensor, labels: torch.Tensor, split: S.Split | None):
+    """(logZ, the label's logit) of every position.  With ``split`` the
+    logits are this rank's block of the vocab columns: logZ from the
+    detached max over "model", the sum over "model" of each rank's
+    exponentials, and the gold logit from the rank that holds the label,
+    summed over "model" (every rank gets both whole)."""
+    if split is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return logz, gold
+    m = sh.tp_max(torch.amax(logits.detach(), dim=-1), split.mesh)
+    total = sh.tp_sum(torch.sum(torch.exp(logits - m[..., None]), dim=-1), split.mesh)
+    n = logits.shape[-1]
+    local = labels.long() - split.index * n
+    mine = (local >= 0) & (local < n)
+    got = torch.gather(logits, -1, torch.clamp(local, 0, n - 1)[..., None])[..., 0]
+    gold = sh.tp_sum(torch.where(mine, got, torch.zeros((), dtype=got.dtype, device=got.device)),
+                     split.mesh)
+    return m + torch.log(total), gold
+
+
+def _head_split(cfg: ModelConfig, model) -> S.Split | None:
+    """``sharding_ctx.split_of`` the head's weight (the tied embedding's)."""
+    tied = cfg.tie_embeddings or cfg.family == "encdec"
+    return S.split_of(model, "embed" if tied else "lm_head")
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, split: S.Split | None = None):
     """Mean next-token cross entropy and mean squared logZ; logits (B,S,V)
-    float32, labels (B,S)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    float32 (this rank's vocab block with ``split``), labels (B,S)."""
+    logz, gold = _logz_gold(logits, labels, split)
     return torch.mean(logz - gold), torch.mean(torch.square(logz))
 
 
 def _chunk_sums(cfg, model, head: dict, h, y):
     with S.swapped(model, head):
         logits = M.apply_head(cfg, model, h)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        logz, gold = _logz_gold(logits, y, _head_split(cfg, model))
     return torch.sum(logz - gold), torch.sum(torch.square(logz))
 
 
@@ -87,7 +120,8 @@ def _chunked_xent(cfg, tcfg: TrainStepConfig, model, hidden, labels):
     """Cross entropy and z over sequence chunks of the largest divisor of S
     that is <= ``loss_chunk``, each chunk's head recomputed in its backward;
     float32 sums divided by B*S.  Under a mesh the head's weight is gathered
-    once and handed to every chunk."""
+    over the data axes once and handed to every chunk; a head split over
+    "model" gives each chunk's vocab-parallel sums (``_logz_gold``)."""
     b, s, _ = hidden.shape
     c = min(tcfg.loss_chunk, s)
     while s % c:
@@ -116,7 +150,7 @@ def _loss_fn(cfg: ModelConfig, tcfg: TrainStepConfig, model, batch: dict, remat_
         if "vision_embeds" in batch:
             # Loss on the text positions only; the stub patches carry no labels.
             logits = logits[:, batch["vision_embeds"].shape[1]:]
-        xent, z = softmax_xent(logits, batch["labels"])
+        xent, z = softmax_xent(logits, batch["labels"], _head_split(cfg, model))
     loss = xent + tcfg.moe_aux_weight * aux + tcfg.z_loss_weight * z
     return loss, {"xent": xent, "moe_aux": aux}
 
@@ -156,16 +190,6 @@ def param_specs(cfg: ModelConfig, mesh) -> dict:
             partition.tree_shardings(logical, mesh, sh.DEFAULT_RULES, shapes=shapes).items()}
 
 
-def kept_local(cfg: ModelConfig, mesh, specs: dict) -> dict:
-    """The manual MoE's expert weights stay local over "model" (each rank
-    computes its own experts); every other weight is gathered whole."""
-    if cfg.moe is None or cfg.moe_impl != "manual" or cfg.moe.n_experts % sh.axis_size(mesh, "model"):
-        return {}
-    _, logical = param_axes_for(cfg)
-    return {name: ("model",) for name, axes in logical.items()
-            if axes and axes[0] == "experts" and specs[name][0] is not None}
-
-
 def _shape(v) -> tuple:
     return tuple(v.shape) if hasattr(v, "shape") else tuple(v[0])
 
@@ -202,11 +226,13 @@ def batch_rows(batch: dict, mesh) -> tuple[dict, tuple[str, ...]]:
 @contextlib.contextmanager
 def mesh_scope(cfg: ModelConfig, model, batch: dict, mesh):
     """Installs ``mesh`` for layer code with ``model``'s parameters as this
-    rank's blocks, and yields this rank's block of ``batch``'s rows on its
-    device (the batch scope names the axes the rows were split over)."""
+    rank's blocks (each layer computes on its "model" blocks: logits come
+    out as the rank's vocab block where the head splits), and yields this
+    rank's block of ``batch``'s rows on its device (the batch scope names
+    the axes the rows were split over)."""
     specs = param_specs(cfg, mesh)
     rows, axes = batch_rows(batch, mesh)
-    layout = S.ParamLayout(mesh, model, specs, kept_local(cfg, mesh, specs))
+    layout = S.ParamLayout(mesh, model, specs)
     with S.activation_sharding_scope(mesh, layout=layout, batch_axes=axes):
         yield rows
 

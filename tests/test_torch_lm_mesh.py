@@ -1,7 +1,9 @@
 """LM training on a mesh on the CPU: a gloo world of 4 processes runs the
 port's mesh train step (``build_train_step(mesh=)``, ``loss_and_grads``)
-on ``("data", "model")`` meshes, held against the port's ``mesh=None``
-step and against the reference's own mesh step.
+on ``("data", "model")`` meshes (2, 2), (1, 4) and (4, 1), held against the
+port's ``mesh=None`` step and against the reference's own mesh step.  On
+(2, 2) and (1, 4) every layer computes on its "model" blocks (rwkv6 with
+heads of 16, so its 4 ``reduced()`` heads split over "model").
 
 One module fixture draws each case's weights (the port's ``init_model``
 from a seeded generator, float32 ``reduced()`` configs, B=8, S=32) and
@@ -16,7 +18,12 @@ rank's results.
 Bounds: gradients within 1e-4 * max |g| of the port's ``mesh=None`` step
 (the GSPMD MoE keeps the global semantics, so it equals ``mesh=None`` with
 dropped tokens too); loss, xent, moe_aux and grad_norm within 1e-5
-(relative) of the reference's mesh step.  The manual expert-parallel MoE
+(relative) of the reference's mesh step.  rwkv6-3b's gradients and
+grad_norm are held at its bound of ``tests/torch_train_ref.py``, 1e-3: its
+gradient is ill-conditioned (``tests/test_torch_train_parity.py``), and a
+rank's split of the heads rounds differently (on the (1, 4) case's weights
+one float32 ulp on every weight moves the ``mesh=None`` gradients by
+6.5e-4 * max |g|).  The manual expert-parallel MoE
 computes a different function (a local capacity; its aux is each data
 row's statistic averaged over the data axes), so it is held to the
 reference's manual mesh step alone: logits, aux and every gradient.
@@ -55,32 +62,45 @@ TIMEOUT_S = 300
 SHAPE = ShapeConfig("t", 32, 8, "train")
 GRAD_REL = 1e-4
 METRIC_REL = 1e-5
+ILL_CONDITIONED = {"rwkv6-3b": 1e-3}    # gradients and grad_norm (tests/torch_train_ref.py)
 MANUAL_VS_GSPMD = 1e-3          # the reference's own bound (tests/test_distributed.py)
 ADAMW_REL = 1e-6
 TRAIN_ARCH = "granite-moe-1b-a400m"
+REMAT_FULL = dict(remat="full", loss_chunk=16, n_microbatches=2)
+HEADS_16 = dict(rwkv_head_dim=16)
 CASES = {
     "gemma2": dict(arch="gemma2-9b", mesh=(2, 2)),
-    "gemma2_remat_full": dict(arch="gemma2-9b", mesh=(2, 2),
-                              tcfg=dict(remat="full", loss_chunk=16, n_microbatches=2)),
+    "gemma2_remat_full": dict(arch="gemma2-9b", mesh=(2, 2), tcfg=REMAT_FULL),
     "gemma2_remat_dots": dict(arch="gemma2-9b", mesh=(2, 2), tcfg=dict(remat="dots")),
     # capacity factor 1: tokens drop, in each of 2 microbatches
     "granite_drop": dict(arch=TRAIN_ARCH, mesh=(2, 2), cf=1.0, tcfg=dict(n_microbatches=2)),
     "granite_drop_4x1": dict(arch=TRAIN_ARCH, mesh=(4, 1), cf=1.0, tcfg=dict(n_microbatches=2)),
     "recurrentgemma": dict(arch="recurrentgemma-2b", mesh=(2, 2)),
+    "rwkv6_4h": dict(arch="rwkv6-3b", mesh=(2, 2), change=HEADS_16),
     "qwen2vl": dict(arch="qwen2-vl-7b", mesh=(2, 2)),
     "whisper": dict(arch="whisper-small", mesh=(2, 2)),
     "granite_manual": dict(arch=TRAIN_ARCH, mesh=(2, 2), impl="manual"),
+    # (1, 4): every "model" dim of 4 splits 4 ways; 2 kv heads stay whole
+    "gemma2_1x4": dict(arch="gemma2-9b", mesh=(1, 4)),
+    "gemma2_remat_full_1x4": dict(arch="gemma2-9b", mesh=(1, 4), tcfg=REMAT_FULL),
+    "granite_drop_1x4": dict(arch=TRAIN_ARCH, mesh=(1, 4), cf=1.0, tcfg=dict(n_microbatches=2)),
+    "recurrentgemma_1x4": dict(arch="recurrentgemma-2b", mesh=(1, 4)),
+    "rwkv6_4h_1x4": dict(arch="rwkv6-3b", mesh=(1, 4), change=HEADS_16),
+    "qwen2vl_1x4": dict(arch="qwen2-vl-7b", mesh=(1, 4)),
+    "whisper_1x4": dict(arch="whisper-small", mesh=(1, 4)),
 }
 GSPMD = [k for k, c in CASES.items() if c.get("impl") != "manual"]
 LOG = re.compile(r"^step +(\d+)  loss (\d+\.\d{4})  gnorm (\d+\.\d{2})  lr \S+  tok/s [\d,]+$")
 
 
 def case_config(case: dict, *, get=get_config, impl=None, cf=None):
-    """The float32 ``reduced()`` config of a case (MoE implementation and
-    capacity factor as the case or the caller sets them)."""
+    """The float32 ``reduced()`` config of a case (with the case's
+    ``change``; MoE implementation and capacity factor as the case or the
+    caller sets them)."""
     import dataclasses
 
-    cfg = dataclasses.replace(get(case["arch"]).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get(case["arch"]).reduced(), dtype="float32",
+                              **case.get("change", {}))
     if cfg.moe is not None:
         moe = dataclasses.replace(cfg.moe, capacity_factor=cf or case.get("cf", cfg.moe.capacity_factor))
         cfg = dataclasses.replace(cfg, moe=moe, moe_impl=impl or case.get("impl", "gspmd"))
@@ -156,7 +176,7 @@ _RANK = textwrap.dedent(
             full = {k: sh.gather_full(g, mesh, specs[k]).numpy() for k, g in grads.items()}
             if rank == 0:
                 out["grads"] = full
-            if name in ("gemma2", "granite_manual"):
+            if name in ("gemma2", "gemma2_1x4", "granite_manual"):
                 # the whole step: its metrics, and AdamW on the blocks vs whole
                 step = build_train_step(cfg, tcfg=tcfg, mesh=mesh, donate=False)
                 opt = adamw_init(tcfg.optimizer, model)
@@ -184,17 +204,20 @@ _RANK = textwrap.dedent(
                                     max(float(b[k].abs().max()), 1e-30))
                 out["adamw_max_rel_err"] = max(errs)
             if name == "granite_manual":
+                def whole(lg):
+                    # this rank's rows, and its vocab block where the head splits
+                    cols = "model" if lg.shape[-1] < cfg.padded_vocab else None
+                    return sh.gather_full(lg, mesh, sh.P(sh.batch_axes(mesh), None, cols)).numpy()
                 with torch.no_grad(), mesh_scope(cfg, model, batch, mesh) as rows:
                     logits, aux = M.train_logits(cfg, model, rows)
-                    out["logits"] = sh.gather_full(logits, mesh, sh.P(sh.batch_axes(mesh))).numpy()
+                    out["logits"] = whole(logits)
                     out["aux"] = float(aux)
                 # manual vs gspmd at capacity factor E (no token dropped)
                 for impl in ("manual", "gspmd"):
                     c = case_config(case, impl=impl, cf=float(cfg.moe.n_experts))
                     with torch.no_grad(), mesh_scope(c, model, batch, mesh) as rows:
                         lg, _ = M.train_logits(c, model, rows)
-                    out[f"logits_cfE_{impl}"] = sh.gather_full(
-                        lg, mesh, sh.P(sh.batch_axes(mesh))).numpy()
+                    out[f"logits_cfE_{impl}"] = whole(lg)
             return out
         record(name, one)
 
@@ -381,7 +404,8 @@ def test_mesh_step_matches_unsharded(world, name):
     for k, v in want.items():
         assert _rel(res["metrics"][k], v) <= METRIC_REL, (k, res["metrics"], want)
     worst = {k: _max_rel(res["grads"][k], g.numpy()) for k, g in grads.items()}
-    assert max(worst.values()) <= GRAD_REL, sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    bound = ILL_CONDITIONED.get(CASES[name]["arch"], GRAD_REL)
+    assert max(worst.values()) <= bound, sorted(worst.items(), key=lambda kv: -kv[1])[:3]
     if "cf" in CASES[name]:
         assert all(_result(world, name, r)["dropped"] > 0 for r in range(WORLD))
 
@@ -392,7 +416,9 @@ def test_mesh_step_matches_reference_mesh_step(world, name):
     mesh step on the same weights and batch."""
     res, ref = _result(world, name), world["reference"][name]["metrics"]
     for k in ("loss", "xent", "moe_aux", "grad_norm"):
-        assert _rel(res["metrics"][k], ref[k]) <= METRIC_REL, (k, res["metrics"], ref)
+        bound = (ILL_CONDITIONED.get(CASES[name]["arch"], METRIC_REL) if k == "grad_norm"
+                 else METRIC_REL)
+        assert _rel(res["metrics"][k], ref[k]) <= bound, (k, res["metrics"], ref)
 
 
 def test_manual_moe_matches_reference_manual_step(world):
@@ -425,7 +451,7 @@ def test_manual_matches_gspmd_at_capacity_e(world):
     assert err < MANUAL_VS_GSPMD, err
 
 
-@pytest.mark.parametrize("name", ["gemma2", "granite_manual"])
+@pytest.mark.parametrize("name", ["gemma2", "gemma2_1x4", "granite_manual"])
 def test_whole_step_and_adamw_on_blocks(world, name):
     """``build_train_step(mesh=)``'s metrics are ``loss_and_grads``' and the
     mesh global norm's; ``donate=False`` leaves the state alone; AdamW on

@@ -3,7 +3,8 @@ the port's ``build_prefill_step(mesh=)`` / ``build_decode_step(mesh=)`` for
 every arch of ``LM_ARCHS`` (and whisper with 2 heads, whose self and
 cross caches split on slots; rwkv6 with 4 heads of 16, which split over
 "model" where its one ``reduced()`` head does not; granite with the manual
-expert-parallel MoE) on ``("data", "model")`` meshes (2, 2) and (1, 4),
+expert-parallel MoE; gemma2 with int8 k/v caches, split on kv heads on (2,
+2) and on slots on (1, 4)) on ``("data", "model")`` meshes (2, 2) and (1, 4),
 held against the port's ``mesh=None`` steps and against the reference's
 own mesh steps.
 
@@ -21,8 +22,9 @@ run is a prefill into 32-slot caches, then 8 teacher-forced decode steps.
 The tests read every rank's results.
 
 Bounds: logits of every step and the gathered caches after prefill and
-after the last step within 1e-4 * max |ref| (cache positions exactly), as
-``tests/test_torch_lm_serve.py``; each rank's blocks of the caches and the
+after the last step within 1e-4 * max |ref| (cache positions exactly, int8
+payloads within one unit), as ``tests/test_torch_lm_serve.py`` and
+``tests/test_torch_lm_models.py``; each rank's blocks of the caches and the
 logits have the shapes of the reference's shards on the same device
 (``partition.tree_shardings``) and their values within the same bound; on
 a world of one, bitwise equal to ``mesh=None``, and a step that lives on
@@ -72,7 +74,9 @@ def _manual(cfg):
 # its 4 heads split.
 VARIANTS = {"whisper-small-2h": ("whisper-small", dict(n_heads=2, n_kv_heads=2)),
             "rwkv6-3b-4h": ("rwkv6-3b", dict(rwkv_head_dim=16)),
-            "granite-moe-manual": ("granite-moe-1b-a400m", _manual)}
+            "granite-moe-manual": ("granite-moe-1b-a400m", _manual),
+            # 2 kv heads: split on heads on (2, 2), on slots on (1, 4)
+            "gemma2-9b-int8": ("gemma2-9b", dict(kv_cache_dtype="int8"))}
 SERVED = tuple(LM_ARCHS) + tuple(VARIANTS)
 ONE = ("gemma2-9b", "qwen1.5-32b", "recurrentgemma-2b", "whisper-small", "arctic-480b",
        "rwkv6-3b", "rwkv6-3b-4h", "granite-moe-1b-a400m", "granite-moe-manual")
@@ -422,6 +426,10 @@ def _hold(got, want, what):
     assert got.shape == want.shape, (what, got.shape, want.shape)
     if want.dtype == np.int32:
         np.testing.assert_array_equal(got, want, err_msg=what)
+        return
+    if want.dtype == np.int8:                   # int8 k/v payloads
+        assert got.dtype == np.int8, (what, got.dtype)
+        assert np.abs(got.astype(np.int32) - want).max(initial=0) <= 1, what
         return
     err = float(np.abs(got - want).max()) if want.size else 0.0
     bound = REL * float(np.abs(want).max()) if want.size else 0.0
