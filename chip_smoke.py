@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
 
   device          card name and count, ``nvidia-smi`` name and power limit
   build           nvcc build of every kernel source, from this checkout;
-                  ptxas registers/spills, and the count of tensor-core (HMMA)
-                  instructions in the gwas_dot library's SASS (must be > 0)
+                  ptxas registers/spills/shared memory and the SASS counts
+                  of HGMMA, UTMALDG and HMMA of every gwas_dot instantiation
+                  (each main kernel: HGMMA and UTMALDG, no HMMA)
   kernel          gwas_dot kernel vs its plain version on the card, at one
                   scan cell (M=4096, N=23000, P=1024) and a ragged shape, fp32
                   and bf16; kernel/plain/library times (CUDA events), bound;
@@ -584,6 +585,59 @@ def phase_device() -> tuple[dict, str]:
     return info, smi
 
 
+# gwas_dot's kernels by instantiation, from the library's ptxas log and SASS
+# (filled by phase_build): {label: {"registers", "spill_stores",
+# "spill_loads", "smem_static", "sass": {"HGMMA", "UTMALDG", "HMMA"}}}
+GWAS_DOT_BUILD: dict = {}
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def _instantiation(mangled: str) -> str:
+    """``gwas_dot_kernel<bf16, fast>`` / ``trait_operand_kernel<bf16>`` from a
+    mangled name (template bools as ``Lb0E``/``Lb1E``)."""
+    import re
+
+    name = re.search(r"(gwas_dot_kernel|trait_operand_kernel)I((?:Lb[01]E)+)E", mangled)
+    if name is None:
+        return mangled
+    flags = ["true" if f == "1" else "false" for f in re.findall(r"Lb([01])E", name.group(2))]
+    return f"{name.group(1)}<{', '.join(flags)}>"
+
+
+def _gwas_dot_instantiations(log: str, sass: str) -> dict:
+    import re
+
+    out: dict = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = out.setdefault(_instantiation(m.group(1)), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            current["smem_static"] = int(sm.group(1)) if sm else 0
+    function = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            function = out.setdefault(_instantiation(m.group(1)), {})
+            function["sass"] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        if function is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    function["sass"][op] += 1
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
 
@@ -600,16 +654,37 @@ def phase_build() -> None:
             if "registers" in ln or "spill" in ln or "entry function" in ln]
         for s in sources
     }
-    # gwas_dot runs on the tensor cores: its SASS must hold HMMA instructions
+    # ptxas's advisories on the wgmma pipeline and setmaxnreg, if any
+    advisories = [ln.strip() for ln in build.build_info["gwas_dot"]["log"].splitlines()
+                  if "wgmma" in ln or "setmaxnreg" in ln or "Performance" in ln]
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", libs["gwas_dot"]], capture_output=True,
-                          text=True, check=True).stdout
-    hmma = sum(1 for ln in sass.splitlines() if "HMMA" in ln)
+    sass = (subprocess.run([cuobjdump, "-sass", libs["gwas_dot"]], capture_output=True,
+                           text=True, check=True).stdout if os.path.exists(cuobjdump) else "")
+    GWAS_DOT_BUILD.clear()
+    GWAS_DOT_BUILD.update(_gwas_dot_instantiations(build.build_info["gwas_dot"]["log"], sass))
     emit({"phase": "build", "sources": sources, "wall_s": wall,
           "nvcc_s": {s: build.build_info[s]["seconds"] for s in sources},
           "libs": {s: os.path.relpath(p, HERE) for s, p in libs.items()}, "ptxas": ptxas,
-          "gwas_dot_hmma": hmma})
-    check(hmma > 0, "the gwas_dot library holds no HMMA (tensor-core) instruction")
+          "gwas_dot_advisories": advisories, "gwas_dot": GWAS_DOT_BUILD})
+    # gwas_dot's main kernels run on wgmma fed by TMA: their SASS must hold
+    # HGMMA and UTMALDG and no warp-level HMMA
+    if sass:
+        mains = {k: v for k, v in GWAS_DOT_BUILD.items() if k.startswith("gwas_dot_kernel")}
+        check(len(mains) == 4, f"gwas_dot: expected 4 main instantiations, found {sorted(mains)}")
+        for label, info in mains.items():
+            ops = info.get("sass", {})
+            check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0 and ops.get("HMMA", 0) == 0,
+                  f"gwas_dot {label}: SASS {ops}, expected HGMMA and UTMALDG and no HMMA")
+
+
+def _mode_build(dtype: str) -> dict:
+    """The build's numbers for the instantiations of one mode, with the main
+    kernel's dynamic shared memory."""
+    from repro_torch.kernels.gwas_dot import gwas_dot as gd
+
+    flag = "true" if dtype == "bf16" else "false"
+    rows = {k: v for k, v in GWAS_DOT_BUILD.items() if k.split("<")[-1].startswith(flag)}
+    return {"instantiations": rows, "smem_dynamic": gd.smem_bytes(dtype == "bf16")}
 
 
 def _kernel_inputs(m, n, p, block_n, seed, missing_row=False):
@@ -675,6 +750,28 @@ def _hold_gwas_dot(label, packed, mean, inv_std, y, n, block_n, dtype):
                     "t_tol": t_tol}
 
 
+def _hold_trait_operand(label, packed, mean, inv_std, y, block_n, dtype) -> None:
+    """The kernel's prologue against its plain version, bit for bit: one
+    launch with a scratch of our own, then the scratch against
+    ``ref.trait_operand_ref`` (transpose, the kernel's sample order, bf16
+    rounding or tf32 hi/lo split, zeros past y's rows and P)."""
+    import torch
+
+    from repro_torch.kernels.gwas_dot import gwas_dot as gd
+    from repro_torch.kernels.gwas_dot import ref
+
+    n_pad = packed.shape[1] * 4
+    shape, stype = ref.trait_operand_shape(y.shape[1], n_pad, dtype)
+    scratch = torch.full(shape, float("nan"), dtype=stype, device=y.device)
+    n = y.shape[0]
+    gd._launch(packed, mean, inv_std, y, scratch, block_n, float(n), float(n - 2), 1e-12,
+               dtype == "bf16")
+    want = ref.trait_operand_ref(y, n_pad, dtype, block_n)
+    word = torch.int16 if dtype == "bf16" else torch.int32
+    check(torch.equal(scratch.view(word), want.view(word)),
+          f"gwas_dot {label} {dtype}: the prologue's trait operand differs from its plain version")
+
+
 def _split_bitwise(packed, mean, inv_std, y, n, block_n, dtype, whole) -> None:
     """Columns 0..SPLIT_P-1 of the whole call equal a call on those columns,
     rows 0..SPLIT_M-1 a call on those rows, byte for byte: each output's sum
@@ -717,6 +814,7 @@ def phase_kernel() -> dict:
                                         y_pad, n_samples=n, dof=dof, input_dtype=dtype)
 
             whole, errs = _hold_gwas_dot(label, packed, mean, inv_std, y, n, block_n, dtype)
+            _hold_trait_operand(label, packed, mean, inv_std, y, block_n, dtype)
             if label == "cell":
                 _split_bitwise(packed, mean, inv_std, y, n, block_n, dtype, whole)
             del whole
@@ -726,13 +824,22 @@ def phase_kernel() -> dict:
             bound_ms, bound_by = gwas_dot_bound(m, n, p, packed.numel(), dtype)
             row = {
                 "shape": label, "m": m, "n": n, "p": p, "dtype": dtype, **errs,
-                "kernel_ms": cuda_ms(kernel),
-                "plain_ms": cuda_ms(plain),
-                "library_ms": cuda_ms(lambda: torch.matmul(lib_a, lib_b)),
+                # 5 back-to-back calls a timing: the host's work per call
+                # (checks, allocation, the tensor map) overlaps the card's
+                "kernel_ms": cuda_ms(kernel, inner=5),
+                "plain_ms": cuda_ms(plain, inner=5),
+                "library_ms": cuda_ms(lambda: torch.matmul(lib_a, lib_b), inner=5),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
             if label == "cell":
                 row["split_bitwise"] = {f"p{SPLIT_P}": True, f"m{SPLIT_M}": True}
+                # the call's two kernels on the card's timeline: the
+                # prologue (trait operand) and the main kernel
+                prof = _device_profile(kernel, 3, top=4)
+                row["device_ms_by_kernel"] = {
+                    ("prologue" if "trait_operand" in k else "main" if "gwas_dot" in k else k): v
+                    for k, v in prof["top_kernels_ms"].items()}
+            row["build"] = _mode_build(dtype)
             if dtype == "fp32":
                 # why the plain version sums in float64: the fp32 GEMM's own
                 # r error against that sum, beside the kernel's r_max_abs_err
@@ -752,8 +859,9 @@ def phase_kernel() -> dict:
             (r, t), errs = _hold_gwas_dot(label, *inputs, n, block_n, dtype)
             check(bool((r[-1] == 0).all() and (t[-1] == 0).all()),
                   f"gwas_dot {label} {dtype}: the all-missing row is not 0")
+            _hold_trait_operand(label, *inputs, block_n, dtype)
             emit({"phase": "kernel", "shape": label, "m": m, "n": n, "p": p,
-                  "block_n": block_n, "dtype": dtype, **errs})
+                  "block_n": block_n, "dtype": dtype, **errs, "build": _mode_build(dtype)})
     return main
 
 

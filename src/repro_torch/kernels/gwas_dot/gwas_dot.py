@@ -2,16 +2,18 @@
 (``kernels/csrc/gwas_dot.cu``), the port of the Pallas TPU kernel
 ``repro.kernels.gwas_dot.gwas_dot.gwas_dot_kernel``.
 
-``gwas_dot_fused`` checks and allocates, then launches the CUDA kernel for
-tensors on a CUDA device, or runs the plain PyTorch version (``ref.py``) for
-tensors on the CPU.  There is no fallback: a CUDA tensor either launches the
+``gwas_dot_fused`` checks and allocates (the outputs, and the scratch that
+the kernel's prologue writes the trait operand into: ``ref.trait_operand_shape``),
+then launches the CUDA kernel for tensors on a CUDA device, or runs the plain
+PyTorch version (``ref.py``) for tensors on the CPU.  There is no fallback: a CUDA tensor either launches the
 kernel or raises.  ``launches`` counts kernel launches (never the plain
 version's runs), so a caller can show that a path went through the kernel.
 
 Under a dispatch mode (a trace: ``FakeTensorMode``, ``FlopCounterMode``)
 the launch goes through the custom op ``torch.ops.repro_torch.gwas_dot``:
 under ``FakeTensorMode`` (a dry run) its registered fake gives the
-outputs' shapes and nothing launches, and ``FlopCounterMode`` counts it as
+outputs' shapes and nothing launches (the scratch is allocated outside the
+op, so a trace counts its bytes), and ``FlopCounterMode`` counts it as
 ``2 M N P`` (N the sample rows of y), the product it computes.  Outside
 one, the wrapper calls the op's implementation itself (a dispatched custom
 op takes a round trip through the dispatcher and Python on every call).
@@ -23,7 +25,7 @@ import ctypes
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels.gwas_dot.ref import gwas_dot_ref, unpack_tiled
+from repro_torch.kernels.gwas_dot.ref import gwas_dot_ref, trait_operand_shape, unpack_tiled
 
 __all__ = ["gwas_dot_fused", "launches", "INPUT_DTYPES"]
 
@@ -42,14 +44,21 @@ def _launcher():
 
         fn = load("gwas_dot").gwas_dot_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 5
             + [ctypes.c_float] * 3
             + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def smem_bytes(bf16: bool) -> int:
+    """The main kernel's dynamic shared memory (its ring), in bytes."""
+    from repro_torch.kernels.build import load
+
+    return int(load("gwas_dot").gwas_dot_smem_bytes(1 if bf16 else 0))
 
 
 def _check(packed, mean, inv_std, y, block_n, input_dtype) -> tuple[int, int, int]:
@@ -110,19 +119,27 @@ def gwas_dot_fused(
         )
     if device.type != "cuda":
         raise ValueError(f"gwas_dot runs on cuda or cpu tensors, not {device.type}")
+    shape, dtype = trait_operand_shape(p, n_pad, input_dtype)
+    scratch = torch.empty(shape, dtype=dtype, device=device)
     launch = _gwas_dot_op if torch._C._len_torch_dispatch_stack() else _launch
     return launch(packed.contiguous(), mean.reshape(-1).contiguous(),
-                  inv_std.reshape(-1).contiguous(), y.contiguous(), n_pad, block_n,
+                  inv_std.reshape(-1).contiguous(), y.contiguous(), scratch, block_n,
                   float(n_samples), float(dof), float(eps), input_dtype == "bf16")
 
 
 def _launch(packed: torch.Tensor, mean: torch.Tensor, inv_std: torch.Tensor,
-            y: torch.Tensor, n_pad: int, block_n: int, n_samples: float, dof: float,
-            eps: float, bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the kernel on checked, contiguous CUDA inputs."""
+            y: torch.Tensor, scratch: torch.Tensor, block_n: int,
+            n_samples: float, dof: float, eps: float,
+            bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel (its prologue writes ``scratch``, then the
+    main kernel runs) on checked, contiguous CUDA inputs."""
     global launches
     device = packed.device
     m, p = int(packed.shape[0]), int(y.shape[1])
+    shape, dtype = trait_operand_shape(p, int(packed.shape[1]) * 4, "bf16" if bf16 else "fp32")
+    if tuple(scratch.shape) != shape or scratch.dtype != dtype or not scratch.is_contiguous():
+        raise ValueError(f"scratch must be a contiguous {dtype} {shape}, got "
+                         f"{scratch.dtype} {tuple(scratch.shape)}")
     r = torch.empty((m, p), dtype=torch.float32, device=device)
     t = torch.empty((m, p), dtype=torch.float32, device=device)
     fn = _launcher()
@@ -130,8 +147,8 @@ def _launch(packed: torch.Tensor, mean: torch.Tensor, inv_std: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             packed.data_ptr(), mean.data_ptr(), inv_std.data_ptr(), y.data_ptr(),
-            r.data_ptr(), t.data_ptr(),
-            m, n_pad, p, int(y.shape[0]), int(packed.shape[1]), int(block_n),
+            scratch.data_ptr(), r.data_ptr(), t.data_ptr(),
+            m, p, int(y.shape[0]), int(packed.shape[1]), int(block_n),
             n_samples, dof, eps, 1 if bf16 else 0, stream,
         )
     if err != 0:
@@ -140,11 +157,12 @@ def _launch(packed: torch.Tensor, mean: torch.Tensor, inv_std: torch.Tensor,
     return r, t
 
 
-_gwas_dot_op = torch.library.custom_op("repro_torch::gwas_dot", _launch, mutates_args=())
+_gwas_dot_op = torch.library.custom_op("repro_torch::gwas_dot", _launch,
+                                       mutates_args=("scratch",))
 
 
 @_gwas_dot_op.register_fake
-def _gwas_dot_fake(packed, mean, inv_std, y, n_pad, block_n, n_samples, dof, eps, bf16):
+def _gwas_dot_fake(packed, mean, inv_std, y, scratch, block_n, n_samples, dof, eps, bf16):
     shape = (packed.shape[0], y.shape[1])
     return tuple(packed.new_empty(shape, dtype=torch.float32) for _ in range(2))
 

@@ -2,8 +2,9 @@
 Pallas kernel run in interpret mode, at the reference's own tolerances
 (tests/test_kernels.py): fp32 r 2e-6 / t 2e-4, bf16 r 5e-3.  The CUDA kernel
 itself runs only on a card: the ``gpu`` tests below hold it against the plain
-version there and skip elsewhere.  An emulation of the kernel's fp32
-arithmetic (3xTF32 products, chunked accumulation) runs here."""
+version there and skip elsewhere.  An emulation of the kernel's arithmetic
+(its sample order, 3xTF32 or bf16 products, chunked accumulation) and the
+plain version of its prologue (the trait operand) against numpy run here."""
 import numpy as np
 import pytest
 import torch
@@ -195,13 +196,60 @@ def test_cuda_kernel_matches_plain_version(m, n, p, bn, dtype):
 
 
 # --------------------------------------------------------------------------
-# The CUDA kernel's fp32 arithmetic, emulated (csrc/gwas_dot.cu): operands
-# split as hi = tf32_rna(x), lo = tf32_rna(x - hi); per 8-sample slice one
-# m16n8k8 mma per pass, in the order lo*hi, hi*lo, hi*hi, each modelled as
-# the exact sum of its 8 products and the accumulator, rounded once to fp32;
-# the accumulator restarts every KC samples and is added into an fp32 total.
+# The CUDA kernel's arithmetic, emulated (csrc/gwas_dot.cu).  The kernel
+# walks each row's packed bytes in order, a stage of SK/4 bytes at a time
+# (SK = 64 samples bf16, 32 fp32), each byte at its four 2-bit slots:
+# wgmma's A fragment gives thread t of four, per k-slice j, the slice's
+# columns {2t, 2t+1, 2t+8, 2t+9} (bf16, k = 16) or {t, t+4} (tf32, k = 8),
+# and element e of those is slot j of the thread's byte e (its bytes: SK/16
+# from SK/16 * t).  fp32: operands split as hi = tf32_rna(x), lo =
+# tf32_rna(x - hi); per k8 slice one wgmma per pass, in the order lo*hi,
+# hi*lo, hi*hi; bf16: one k16 wgmma per slice, products exact.  Each wgmma
+# is modelled as the exact sum of its products and the accumulator, rounded
+# once to fp32; the accumulator restarts every KC samples of that order and
+# is added into an fp32 total (round to nearest).
 
-KC = 64
+KC_FP32 = 32    # the kernel's fp32 chunk: one 32-sample stage
+KC_BF16 = 256   # the kernel's bf16 chunk: four 64-sample stages
+
+
+def _sample_order(n_pad: int, block_n: int, dtype: str) -> np.ndarray:
+    """The sample each column of the kernel's sample axis stands for (-1:
+    none), spelled from the fragment layout and the tile-local packing."""
+    if dtype == "bf16":   # 64-sample stages, k16 slices
+        sk, k, cols = 64, 16, lambda t: [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
+    else:                 # 32-sample stages, k8 slices
+        sk, k, cols = 32, 8, lambda t: [t, t + 4]
+    per_stage, per_thread = sk // 4, sk // 16      # bytes
+    stride, q = n_pad // 4, block_n // 4
+    n_cols = -(-n_pad // 64) * 64
+    out = np.full(n_cols, -1, np.int64)
+    for s0 in range(0, n_cols, sk):
+        for t in range(4):
+            for j in range(sk // k):
+                for e, c in enumerate(cols(t)):
+                    byte = (s0 // sk) * per_stage + per_thread * t + e
+                    if byte < stride:
+                        out[s0 + k * j + c] = (byte // q) * block_n + j * q + byte % q
+    return out
+
+
+@pytest.mark.parametrize("n_pad,block_n", [(1024, 512), (23040, 512), (704, 64), (468, 36)])
+def test_sample_order_matches_fragment_layout(n_pad, block_n):
+    for dtype in ("bf16", "fp32"):
+        order = _sample_order(n_pad, block_n, dtype)
+        assert sorted(order[order >= 0].tolist()) == list(range(n_pad))
+        np.testing.assert_array_equal(ref.sample_order(n_pad, block_n, dtype).numpy(), order)
+
+
+def _logical_order(x: torch.Tensor, dtype: str, axis: int, block_n: int) -> torch.Tensor:
+    """``x`` with its sample axis in the kernel's order (zeros for columns
+    that stand for no sample)."""
+    order = _sample_order(x.shape[axis], block_n, dtype)
+    pad = [0, 0] * x.dim()
+    pad[2 * (x.dim() - 1 - axis) + 1] = 1          # one zero slice at the end
+    x = torch.nn.functional.pad(x, pad)
+    return x.index_select(axis, torch.from_numpy(np.where(order >= 0, order, x.shape[axis] - 1)))
 
 
 def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -219,56 +267,71 @@ def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def _emulate_kernel_fp32(g, y, *, rounding, chunk):
-    """Emulated kernel sum ``g @ y`` ((M, N) x (N, P) float32, N a multiple
-    of 8); ``chunk=None`` keeps one accumulator over all samples."""
+def _emulate_kernel(g, y, *, dtype, rounding, chunk, block_n):
+    """Emulated kernel sum ``g @ y`` ((M, N_pad) x (N_pad, P) float32 in the
+    packing's sample order); ``chunk=None`` keeps one accumulator over all
+    samples."""
     rnd = (lambda v: v.to(torch.float32)) if rounding == "nearest" else _round_toward_zero
-    m, n = g.shape
+    m = g.shape[0]
     p = y.shape[1]
-    gh = _tf32_rna(g)
-    gl = _tf32_rna(g - gh)
-    yh = _tf32_rna(y)
-    yl = _tf32_rna(y - yh)
+    g = _logical_order(g, dtype, 1, block_n)
+    y = _logical_order(y, dtype, 0, block_n)
+    k = 8 if dtype == "fp32" else 16
 
-    def slices(a, b):   # exact per-slice sums, (N/8, M, P) float64
-        return torch.einsum("mkj,kjp->kmp", a.double().reshape(m, -1, 8),
-                            b.double().reshape(-1, 8, p))
+    def slices(a, b):   # exact per-slice sums, (N/k, M, P) float64
+        return torch.einsum("mkj,kjp->kmp", a.double().reshape(m, -1, k),
+                            b.double().reshape(-1, k, p))
 
-    passes = (slices(gl, yh), slices(gh, yl), slices(gh, yh))
+    if dtype == "fp32":
+        gh, yh = _tf32_rna(g), _tf32_rna(y)
+        gl, yl = _tf32_rna(g - gh), _tf32_rna(y - yh)
+        passes = (slices(gl, yh), slices(gh, yl), slices(gh, yh))
+    else:
+        passes = (slices(g.to(torch.bfloat16).float(), y.to(torch.bfloat16).float()),)
     acc = torch.zeros((m, p), dtype=torch.float32)
     total = torch.zeros((m, p), dtype=torch.float32)
-    for s in range(n // 8):
+    for s in range(g.shape[1] // k):
         for part in passes:
             acc = rnd(acc.double() + part[s])
-        if chunk is not None and (s + 1) * 8 % chunk == 0:
+        if chunk is not None and (s + 1) * k % chunk == 0:
             total, acc = total + acc, torch.zeros_like(acc)
     return total + acc
 
 
-@pytest.mark.parametrize("rounding,chunk,holds", [
-    ("nearest", KC, True),
-    ("toward_zero", KC, True),
-    # truncating adds into one accumulator over 23,000 samples drift far
-    # past the tolerance: why the kernel restarts it every KC samples
-    ("toward_zero", None, False),
-])
-def test_kernel_fp32_arithmetic_holds_reference(rounding, chunk, holds):
+def _emulation_inputs():
+    """32 markers x 32 traits at N = 23,000 (padded to 23,040), trait j
+    carrying marker j at r ~ c_j, up to 0.9."""
     m = p = 32
     n, bn = 23000, 512
     codes, rng = _mk(m, n, seed=14)
     mean, inv_std, _ = ops.marker_stats_from_codes(codes)
     g = ref.decode_standardize_ref(torch.from_numpy(codes.astype(np.int32)),
                                    torch.from_numpy(mean), torch.from_numpy(inv_std))
-    # trait j carries marker j at r ~ c_j, up to 0.9
     c = np.linspace(0.0, 0.9, p)[None, :]
     y = (np.sqrt(1 - c**2) * rng.normal(size=(n, p)) + c * g.numpy().T).astype(np.float32)
     packed = ops.pack_tiled(codes, bn)
-    r_ref, t_ref = ref_ops.gwas_dot(packed, mean, inv_std, y, n_samples=n, dof=n - 2,
-                                    block_m=m, block_n=bn, block_p=p, interpret=True)
     n_pad = packed.shape[1] * 4
     g_pad = torch.nn.functional.pad(g, (0, n_pad - n))
     y_pad = torch.nn.functional.pad(torch.from_numpy(y), (0, 0, 0, n_pad - n))
-    acc = _emulate_kernel_fp32(g_pad, y_pad, rounding=rounding, chunk=chunk)
+    return codes, packed, mean, inv_std, y, g_pad, y_pad, n, bn
+
+
+@pytest.mark.parametrize("rounding,chunk,holds", [
+    ("nearest", KC_FP32, True),
+    ("toward_zero", KC_FP32, True),
+    # the chunk of the mma.sync kernel before it (64 samples) held too
+    ("toward_zero", 64, True),
+    # truncating adds into one accumulator over 23,000 samples drift far
+    # past the tolerance: why the kernel restarts it every KC samples
+    ("toward_zero", None, False),
+])
+def test_kernel_fp32_arithmetic_holds_reference(rounding, chunk, holds):
+    codes, packed, mean, inv_std, y, g_pad, y_pad, n, bn = _emulation_inputs()
+    m, p = codes.shape[0], y.shape[1]
+    r_ref, t_ref = ref_ops.gwas_dot(packed, mean, inv_std, y, n_samples=n, dof=n - 2,
+                                    block_m=m, block_n=bn, block_p=p, interpret=True)
+    acc = _emulate_kernel(g_pad, y_pad, dtype="fp32", rounding=rounding, chunk=chunk,
+                          block_n=bn)
     r = torch.clamp(acc / float(n), -1.0, 1.0)
     t = r * torch.rsqrt(torch.clamp(1.0 - r * r, min=1e-12) / float(n - 2))
     assert float(np.abs(np.asarray(r_ref)).max()) > 0.85
@@ -284,6 +347,78 @@ def test_kernel_fp32_arithmetic_holds_reference(rounding, chunk, holds):
         assert r_err <= 2e-6 and float(t_excess.max()) <= 0.0, (r_err, t_err)
     else:
         assert r_err > 2e-6, r_err
+
+
+@pytest.mark.parametrize("chunk,holds", [
+    (KC_BF16, True),
+    (64, True),
+    # one truncating accumulator over 23,000 samples leaves r 2e-6 (though
+    # not the bf16 mode's own 5e-3)
+    (None, False),
+])
+def test_kernel_bf16_arithmetic_holds_plain_version(chunk, holds):
+    """The bf16 mode's chunk: with truncating adds, r within 2e-6 of the
+    plain version (bf16 operands, the sum rounded once)."""
+    codes, packed, mean, inv_std, y, g_pad, y_pad, n, bn = _emulation_inputs()
+    r0, _ = ref.gwas_dot_ref(torch.from_numpy(codes.astype(np.int32)), torch.from_numpy(mean),
+                             torch.from_numpy(inv_std), torch.from_numpy(y), n_samples=n,
+                             dof=n - 2, input_dtype="bf16")
+    acc = _emulate_kernel(g_pad, y_pad, dtype="bf16", rounding="toward_zero", chunk=chunk,
+                          block_n=bn)
+    r = torch.clamp(acc / float(n), -1.0, 1.0)
+    assert float(r0.abs().max()) > 0.85
+    r_err = float((r - r0).abs().max())
+    assert r_err <= 5e-3, r_err
+    assert (r_err <= 2e-6) == holds, r_err
+
+
+def _bf16_rne(x: np.ndarray) -> np.ndarray:
+    """float32 -> bf16 (round to nearest even), returned as float32."""
+    bits = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    rounded = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+    return rounded.astype(np.uint32).view(np.float32)
+
+
+def _tf32_rna_np(x: np.ndarray) -> np.ndarray:
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("n_rows,n_pad,p,block_n", [
+    (1003, 1024, 301, 512),   # P not a multiple of the 128-trait tile, rows past y
+    (460, 468, 40, 36),       # N_pad not a multiple of the stage or of 64
+    (64, 64, 128, 64),        # whole tiles
+    (77, 512, 3, 512),
+])
+def test_trait_operand_plain_version_matches_numpy(dtype, n_rows, n_pad, p, block_n):
+    """The kernel prologue's plain version: y transposed to samples-contiguous
+    rows of 128-trait tiles, samples padded to 64, in the kernel's sample
+    order, zero past y's rows and P; bf16 rounded to nearest even, or fp32
+    split into tf32 hi and lo planes."""
+    y = np.random.default_rng(n_rows + p).normal(size=(n_rows, p)).astype(np.float32)
+    got = ref.trait_operand_ref(torch.from_numpy(y), n_pad, dtype, block_n)
+    p_pad, k_pad = -(-p // 128) * 128, -(-n_pad // 64) * 64
+    order = _sample_order(n_pad, block_n, dtype)
+    yt = np.zeros((p_pad, k_pad), np.float32)
+    for k, n in enumerate(order):
+        if 0 <= n < n_rows:
+            yt[:p, k] = y[n]
+    if dtype == "bf16":
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (p_pad, k_pad)
+        want = _bf16_rne(yt)
+        np.testing.assert_array_equal(got.float().numpy().view(np.uint32), want.view(np.uint32))
+    else:
+        assert got.dtype == torch.float32 and tuple(got.shape) == (2 * p_pad, k_pad)
+        hi = _tf32_rna_np(yt)
+        lo = _tf32_rna_np((yt - hi).astype(np.float32))
+        np.testing.assert_array_equal(got.numpy()[:p_pad].view(np.uint32), hi.view(np.uint32))
+        np.testing.assert_array_equal(got.numpy()[p_pad:].view(np.uint32), lo.view(np.uint32))
+        np.testing.assert_allclose(got.numpy()[:p_pad].astype(np.float64) + got.numpy()[p_pad:],
+                                   yt, rtol=2.0**-21, atol=0)
+    # what stands for no row of y, and what lies past P, is zero
+    assert not got.float().numpy()[p:p_pad].any() and not got.float().numpy()[p_pad + p:].any()
+    assert not got.float().numpy()[:, (order < 0) | (order >= n_rows)].any()
 
 
 def test_tf32_split_is_exact_to_22_bits():
