@@ -1,0 +1,2 @@
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA device (skips without one)")
