@@ -8,7 +8,10 @@ into the session's ``ScanMetrics``.  Three surfaces read it:
 
     CLI        a live progress line (cells done, markers/s, device count)
     summary    ``summary.json``'s ``metrics`` block via ``summary()``
-    BENCH      ``benchmarks/run.py``'s executor section rows
+    gwasbench  window deltas of ``summary()`` (its per-layer metrics)
+
+While ``runtime.spans`` records, ``summary()`` also carries the spans and
+counters recorded since the session began (its ``spans`` block).
 
 Timing is observational only: recording happens after the cell's arrays
 are materialized (the commit/writer path forces that synchronization
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+
+from repro_torch.runtime import spans as _spans
 
 __all__ = ["CellTiming", "ScanMetrics"]
 
@@ -90,6 +95,7 @@ class ScanMetrics:
         self._request_lat: dict[str, list[float]] = {}
         self._queue_depth = 0
         self._caches: dict[str, dict] = {}
+        self._spans_base = _spans.snapshot()
 
     # ------------------------------------------------------------ recording
 
@@ -215,25 +221,6 @@ class ScanMetrics:
             return None
         return self._extract_s / busy
 
-    @property
-    def step_s_total(self) -> float:
-        return self._step_s
-
-    @property
-    def decode_s_total(self) -> float:
-        return self._decode_s
-
-    @property
-    def h2d_bytes_total(self) -> int:
-        return self._h2d_bytes
-
-    def h2d_bytes_per_marker(self) -> float | None:
-        """Staged batch-payload bytes per distinct live marker — the §17
-        staging-currency observable (~4N dense vs ~N/4 packed)."""
-        if self._markers <= 0:
-            return None
-        return self._h2d_bytes / self._markers
-
     def _wall(self) -> float:
         if self.wall_s > 0:
             return self.wall_s
@@ -258,6 +245,9 @@ class ScanMetrics:
         share = self.extract_share()
         serve = self.serve_summary()
         extra = {"serve": serve} if serve is not None else {}
+        spans = _spans.summary(self._spans_base)
+        if spans is not None:
+            extra["spans"] = spans
         return {
             **extra,
             "cells": self.cells_done,

@@ -59,6 +59,7 @@ from repro_torch.core.engines import (
 from repro_torch.core.panels import PanelPrefetcher, PanelStore
 from repro_torch.core.residualize import covariate_basis
 from repro_torch.core.sinks import BatchView, extract_hits
+from repro_torch.runtime import spans
 from repro_torch.runtime.checkpoint import ScanCheckpoint, config_fingerprint
 from repro_torch.runtime.device import on_stream, resolve_device, synchronize
 from repro_torch.runtime.prefetch import (
@@ -533,7 +534,8 @@ class _Slot:
             synchronize(self._fence_device)
 
     def stage(self, host_batch) -> tuple:
-        return self.state.stage(host_batch)
+        with spans.span("stage", batch=host_batch.batch.index):
+            return self.state.stage(host_batch)
 
     def step(self, *args) -> dict:
         return self.state.step(*args)
@@ -620,13 +622,19 @@ class _SlotTail:
     def submit(self, task: Callable[[], None]) -> None:
         """Enqueue (bounded: blocks the compute thread when the tail is >4
         cells behind — host-RAM backpressure) unless teardown started."""
-        while True:
-            try:
-                self._q.put(task, timeout=0.1)
-                return
-            except queue.Full:
-                if self._stop.is_set():
+        try:
+            self._q.put_nowait(task)
+            return
+        except queue.Full:
+            pass
+        with spans.span("tail_wait"):
+            while True:
+                try:
+                    self._q.put(task, timeout=0.1)
                     return
+                except queue.Full:
+                    if self._stop.is_set():
+                        return
 
     def _run(self) -> None:
         with on_stream(self._stream):
@@ -688,9 +696,10 @@ class SerialExecutor:
         slot = _Slot(prep, step=self._step, label="serial")
 
         def decode(b):
-            t = time.perf_counter()
-            hb = engine.prepare_batch(prep.study.source, b, prep.ctx)
-            return hb, time.perf_counter() - t
+            with spans.span("decode", batch=b.index):
+                t = time.perf_counter()
+                hb = engine.prepare_batch(prep.study.source, b, prep.ctx)
+                return hb, time.perf_counter() - t
 
         prefetched = Prefetcher(
             todo,
@@ -722,22 +731,26 @@ class SerialExecutor:
                 nxt = todo_pos.get(bidx, len(todo)) + 1
                 next_batch = todo[nxt] if nxt < len(todo) else None
                 for pos, blk in enumerate(cells):
-                    t0 = time.perf_counter()
-                    out = slot.step(*dev_args, slot.panel_block(batch, blk))
-                    # Look ahead one cell on the trait axis (then wrap to the
-                    # next batch's first block), requested before the device
-                    # fence so staging overlaps the step.
-                    if pos + 1 < len(cells):
-                        panel_la.request(batch, cells[pos + 1])
-                    elif next_batch is not None and blocks:
-                        panel_la.request(next_batch, blocks[0])
-                    # Split the cell's wall time at the device fence: kernels
-                    # run asynchronously, so t1 - t0 is device time and
-                    # t2 - t1 the host payload extraction.
-                    slot.fence()
-                    t1 = time.perf_counter()
-                    cell = _live_cell(host_batch, out, blk, cfg, prep.dof)
-                    t2 = time.perf_counter()
+                    # The spans open and close at the clock reads that time
+                    # step_s and extract_s.
+                    with spans.span("step", batch=bidx, block=blk.index):
+                        t0 = time.perf_counter()
+                        out = slot.step(*dev_args, slot.panel_block(batch, blk))
+                        # Look ahead one cell on the trait axis (then wrap to
+                        # the next batch's first block), requested before the
+                        # device fence so staging overlaps the step.
+                        if pos + 1 < len(cells):
+                            panel_la.request(batch, cells[pos + 1])
+                        elif next_batch is not None and blocks:
+                            panel_la.request(next_batch, blocks[0])
+                        # Split the cell's wall time at the device fence:
+                        # kernels run asynchronously, so t1 - t0 is device
+                        # time and t2 - t1 the host payload extraction.
+                        slot.fence()
+                        t1 = time.perf_counter()
+                    with spans.span("extract", batch=bidx, block=blk.index):
+                        cell = _live_cell(host_batch, out, blk, cfg, prep.dof)
+                        t2 = time.perf_counter()
                     yield cell, CellTiming(
                         batch_index=bidx,
                         block_index=blk.index,
@@ -903,9 +916,10 @@ class MultiDeviceExecutor:
                         return
 
         def decode(batch):
-            t = time.perf_counter()
-            hb = engine.prepare_batch(prep.study.source, batch, prep.ctx)
-            return hb, time.perf_counter() - t
+            with spans.span("decode", batch=batch.index):
+                t = time.perf_counter()
+                hb = engine.prepare_batch(prep.study.source, batch, prep.ctx)
+                return hb, time.perf_counter() - t
 
         # One pool across every slot: total host decode parallelism is
         # io_workers — the meaning the knob has under the serial executor —
@@ -964,11 +978,12 @@ class MultiDeviceExecutor:
 
             def make_emit(hb, out, blk, batch, step_s, decode_s, stage_s, h2d_bytes):
                 def emit() -> None:
-                    t = time.perf_counter()
-                    cell = _live_cell(hb, out, blk, cfg, prep.dof)
-                    if self.commit is not None:
-                        self.commit(cell)
-                    extract_s = time.perf_counter() - t
+                    with spans.span("extract", batch=batch.index, block=blk.index):
+                        t = time.perf_counter()
+                        cell = _live_cell(hb, out, blk, cfg, prep.dof)
+                        if self.commit is not None:
+                            self.commit(cell)
+                        extract_s = time.perf_counter() - t
                     put((cell, CellTiming(
                         batch_index=batch.index,
                         block_index=blk.index,
@@ -1020,26 +1035,28 @@ class MultiDeviceExecutor:
                         for pos, blk in enumerate(run.blocks):
                             if stop.is_set():
                                 return
-                            t0 = time.perf_counter()
-                            out = slot.step(*dev_args, slot.panel_block(batch, blk))
-                            # Overlap windows open between launch and fence:
-                            # the next cell's panel block and (first cell of
-                            # the run only) the look-ahead batch's staging.
-                            if panel_la is not None:
-                                if pos + 1 < len(run.blocks):
-                                    panel_la.request(batch, run.blocks[pos + 1])
-                                elif ahead:
-                                    nrun = ahead[0][1]
-                                    panel_la.request(nrun.batch, nrun.blocks[0])
-                            if depth > 0 and ahead:
-                                # Stage the look-ahead batch's copy as soon
-                                # as its decode lands (double buffer) —
-                                # probed, never waited on.
-                                nxt = ahead[0][1].batch
-                                if nxt.index not in staged and pool.ready((wid, nxt.index)):
-                                    staged_args(nxt)
-                            slot.fence()
-                            step_s = time.perf_counter() - t0
+                            with spans.span("step", batch=batch.index, block=blk.index):
+                                t0 = time.perf_counter()
+                                out = slot.step(*dev_args, slot.panel_block(batch, blk))
+                                # Overlap windows open between launch and
+                                # fence: the next cell's panel block and
+                                # (first cell of the run only) the look-ahead
+                                # batch's staging.
+                                if panel_la is not None:
+                                    if pos + 1 < len(run.blocks):
+                                        panel_la.request(batch, run.blocks[pos + 1])
+                                    elif ahead:
+                                        nrun = ahead[0][1]
+                                        panel_la.request(nrun.batch, nrun.blocks[0])
+                                if depth > 0 and ahead:
+                                    # Stage the look-ahead batch's copy as
+                                    # soon as its decode lands (double
+                                    # buffer) — probed, never waited on.
+                                    nxt = ahead[0][1].batch
+                                    if nxt.index not in staged and pool.ready((wid, nxt.index)):
+                                        staged_args(nxt)
+                                slot.fence()
+                                step_s = time.perf_counter() - t0
                             emit = make_emit(
                                 hb, out, blk, batch, step_s, decode_s, stage_s, h2d_bytes,
                             )
@@ -1414,6 +1431,7 @@ class ScanSession:
             )
         computed: set[tuple[int, int]] = set()
         self.metrics.start()
+        spans.follow_profiler()
         stream = executor.cells(todo, pending)
         try:
             for cell, timing in stream:
@@ -1424,14 +1442,19 @@ class ScanSession:
                     # substrate: double completion (work stealing) is an
                     # idempotent overwrite, and a resume under any device
                     # count skips exactly the committed cells.
-                    ckpt.commit_cell(cell.batch_index, cell.block_index, cell.payload())
+                    with spans.span("deliver", batch=cell.batch_index, block=cell.block_index):
+                        ckpt.commit_cell(cell.batch_index, cell.block_index, cell.payload())
                 computed.add((cell.batch_index, cell.block_index))
                 self.metrics.record(timing)
                 if self.progress is not None:
                     self.progress(self.metrics)
                 yield cell
+                # A profiler started by a consumer of this cell turns the
+                # program's spans on from the next cell to the scan's end.
+                spans.follow_profiler()
         finally:
             stream.close()
+            spans.follow_profiler(end=True)
             self.executor_info = executor.info()
             self.metrics.finish()
 

@@ -37,6 +37,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 
 from repro_torch.core.sinks import BestTraitSink, LambdaGCSink, QCSink
+from repro_torch.runtime import spans
 
 __all__ = [
     "ResultWriter",
@@ -110,8 +111,9 @@ def stream_session(session: Any, writers: Sequence[ResultWriter]) -> dict:
             opened.append(w)
         gen = session.events()
         for cell in gen:
-            for w in writers:
-                w.write(cell)
+            with spans.span("deliver", batch=cell.batch_index, block=cell.block_index):
+                for w in writers:
+                    w.write(cell)
     except BaseException:
         for w in opened:
             w.abort()

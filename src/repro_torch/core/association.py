@@ -29,6 +29,7 @@ __all__ = [
     "standardize_genotype_batch",
     "correlation",
     "assoc_from_standardized",
+    "assoc_from_correlation",
     "assoc_batch",
     "plan_sparse_epilogue",
     "sparse_epilogue_outputs",
@@ -192,6 +193,19 @@ def assoc_from_standardized(
         g_std, y_std, n_samples, precision=options.precision, trait_tile=trait_tile,
         sample_sum=sample_sum,
     )
+    return assoc_from_correlation(r, n_samples=n_samples, n_covariates=n_covariates,
+                                  options=options)
+
+
+def assoc_from_correlation(
+    r: torch.Tensor,
+    *,
+    n_samples: int,
+    n_covariates: int,
+    options: AssocOptions = AssocOptions(),
+) -> AssocResult:
+    """The epilogue of ``assoc_from_standardized``: t and -log10 p from the
+    product ``r``."""
     # Standardization guarantees |r| <= 1 up to rounding; clamp so the
     # epilogue stays finite even for degenerate columns.
     r = torch.clamp(r, -1.0, 1.0)

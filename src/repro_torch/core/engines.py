@@ -38,15 +38,18 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core import association as _assoc
 from repro_torch.core import stats as _stats
 from repro_torch.core.association import (
     AssocOptions,
+    assoc_from_correlation,
     assoc_from_standardized,
     correlation,
     plan_sparse_epilogue,
     sparse_epilogue_outputs,
     standardize_genotype_batch,
 )
+from repro_torch.runtime import spans as _spans
 from repro_torch.runtime.prefetch import MarkerBatch, TraitBlock
 from repro_torch.runtime.sharding import (
     P,
@@ -555,6 +558,10 @@ def build_dense_step(
     )
 
     def prolog(g_raw: torch.Tensor, q=q_basis, sample_sum=None):
+        with _spans.span("prolog", device_of=g_raw):
+            return _prolog(g_raw, q, sample_sum)
+
+    def _prolog(g_raw, q, sample_sum):
         if packed_input:
             from repro_torch.kernels.gwas_dot import ops as kops
 
@@ -570,11 +577,18 @@ def build_dense_step(
         valid = ms.valid & (ms.maf >= maf_min) if maf_min > 0 else ms.valid
         return g_std, ms.maf, valid
 
+    def product(g_std, y_std, sample_sum=None) -> torch.Tensor:
+        # looked up in its module at each call, as assoc_from_standardized
+        # does, so a substitute installed there (a test's fault) is the one run
+        return _assoc.correlation(g_std, y_std, n_samples, precision=cell_options.precision,
+                                  trait_tile=trait_tile, sample_sum=sample_sum)
+
     def tiles(g_std, valid, y_std, sample_sum=None) -> dict[str, torch.Tensor]:
-        res = assoc_from_standardized(
-            g_std, y_std, n_samples=n_samples, n_covariates=n_covariates,
-            options=cell_options, trait_tile=trait_tile, sample_sum=sample_sum,
-        )
+        return tiles_from_r(product(g_std, y_std, sample_sum), valid)
+
+    def tiles_from_r(r, valid) -> dict[str, torch.Tensor]:
+        res = assoc_from_correlation(r, n_samples=n_samples, n_covariates=n_covariates,
+                                     options=cell_options)
         mask = valid[:, None]
         out = {"r": _masked(res.r, mask), "t": _masked(res.t, mask)}
         if sparse is None:
@@ -595,7 +609,10 @@ def build_dense_step(
         return out
 
     def cell(g_std, maf, valid, y_std) -> dict[str, torch.Tensor]:
-        return summarize({**tiles(g_std, valid, y_std), "maf": maf, "valid": valid})
+        with _spans.span("product", device_of=g_std):
+            r = product(g_std, y_std)
+        with _spans.span("epilogue", device_of=g_std):
+            return summarize({**tiles_from_r(r, valid), "maf": maf, "valid": valid})
 
     if mesh is not None:
         return _dense_mesh_step(mesh, mode, prolog, tiles, summarize, q_basis=q_basis)

@@ -35,14 +35,19 @@ import torch
 
 from repro_torch.core import stats as _stats
 from repro_torch.core.engines import HostBatch
+from repro_torch.runtime import spans as _spans
 from repro_torch.runtime.checkpoint import ScanCheckpoint
 from repro_torch.runtime.prefetch import MarkerBatch
 
 
 def _host(x) -> np.ndarray:
-    """One device output as a host array (a device->host copy for tensors)."""
+    """One device output as a host array (a device->host copy for tensors;
+    the ``pull`` span, and ``d2h_bytes`` for a tensor off the CPU)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        with _spans.span("pull") as sp:
+            if sp is not None and not x.is_cpu:
+                _spans.count("d2h_bytes", x.nbytes)
+            return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
@@ -54,7 +59,7 @@ def _screen_any(t_tile, t2_screen: float) -> bool:
     t = torch.as_tensor(t_tile)
     if t.numel() == 0:
         return False
-    return bool(np.float32(torch.max(t * t).item()) >= np.float32(t2_screen))
+    return bool(np.float32(_host(torch.max(t * t))) >= np.float32(t2_screen))
 
 
 __all__ = [

@@ -33,6 +33,8 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.runtime import spans
+
 __all__ = [
     "t_from_r",
     "chi2_from_r",
@@ -282,8 +284,13 @@ def refine_neglog10p(
     bit-identical values for the same t.  Padding lanes (t=0) map to nlp=0
     and are sliced off.  ``width=None`` evaluates the buffer as one call.
     """
-    with _REFINE_LOCK:
-        return _refine(t_values, dof, width)
+    with spans.span("refine_wait"):
+        _REFINE_LOCK.acquire()
+    try:
+        with spans.span("refine"):
+            return _refine(t_values, dof, width)
+    finally:
+        _REFINE_LOCK.release()
 
 
 # One refine at a time per process.  A refine is a chain of a few hundred

@@ -44,6 +44,7 @@ import numpy as np
 
 from repro_torch.core.association import AssocOptions
 from repro_torch.core.engines import available_engines
+from repro_torch.runtime import spans
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.workqueue import available_backends
 
@@ -134,6 +135,10 @@ def build_scan_parser() -> argparse.ArgumentParser:
     ap.add_argument("--progress", action="store_true",
                     help="live per-cell progress line on stderr (auto when "
                          "stderr is a tty)")
+    ap.add_argument("--trace-spans", action="store_true",
+                    help="record the scan's spans and counters (decode, step, "
+                         "product, extract, refine, pulls, waits: see PERF.md) "
+                         "into summary.json's metrics.spans")
     lmm = ap.add_argument_group("mixed model (--engine lmm)")
     lmm.add_argument("--loco", action="store_true",
                      help="leave-one-chromosome-out GRM (needs a multi-file fileset)")
@@ -255,8 +260,15 @@ def cmd_scan(argv) -> None:
         )
     # wall_s covers the scan itself, not the amortized setup — the same
     # accounting the historical CLI reported.
+    if args.trace_spans:
+        spans.start()
     t0 = time.time()
-    wsum = session.stream_to(*writers)
+    try:
+        wsum = session.stream_to(*writers)
+    finally:
+        if args.trace_spans:
+            spans.stop()
+            spans.take()   # the summary keeps the totals; the records go
     wall = time.time() - t0
     if session.progress is not None:
         print(file=sys.stderr)  # finish the \r progress line

@@ -37,6 +37,8 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Iterator, TypeVar
 
+from repro_torch.runtime import spans
+
 T = TypeVar("T")
 U = TypeVar("U")
 V = TypeVar("V")
@@ -231,18 +233,23 @@ class DecodePool:
     def result(self, key: Any) -> Any:
         """Block until ``key``'s decode lands, pop it, re-raise its error."""
         with self._lock:
-            while True:
-                if key in self._errors:
-                    self._pending.discard(key)
-                    raise self._errors.pop(key)
-                if key in self._results:
-                    self._pending.discard(key)
-                    return self._results.pop(key)
-                if self._stop:
-                    raise RuntimeError(f"DecodePool stopped before {key!r} resolved")
-                if key not in self._pending:
-                    raise KeyError(f"decode key {key!r} was never submitted")
-                self._ready.wait()
+            if key in self._results or key in self._errors:
+                return self._take(key)
+            with spans.span("batch_wait"):
+                while not (key in self._results or key in self._errors):
+                    if self._stop:
+                        raise RuntimeError(f"DecodePool stopped before {key!r} resolved")
+                    if key not in self._pending:
+                        raise KeyError(f"decode key {key!r} was never submitted")
+                    self._ready.wait()
+            return self._take(key)
+
+    def _take(self, key: Any) -> Any:
+        """Pop a landed result (caller holds the lock)."""
+        self._pending.discard(key)
+        if key in self._errors:
+            raise self._errors.pop(key)
+        return self._results.pop(key)
 
     def ready(self, key: Any) -> bool:
         """Non-blocking probe: has ``key``'s decode landed (result or
@@ -354,6 +361,10 @@ class Prefetcher:
                     self._errors[idx] = e
                     self._ready.notify_all()
 
+    def _landed(self) -> bool:
+        """Has the next item in order landed (caller holds the lock)?"""
+        return self._next_yield in self._results or self._next_yield in self._errors
+
     def shutdown(self, *, join_timeout: float = 5.0) -> None:
         """Stop the worker pool and join the threads (idempotent).
 
@@ -374,11 +385,10 @@ class Prefetcher:
         try:
             while self._next_yield < len(self._items):
                 with self._lock:
-                    while (
-                        self._next_yield not in self._results
-                        and self._next_yield not in self._errors
-                    ):
-                        self._ready.wait()
+                    if not self._landed():
+                        with spans.span("batch_wait"):
+                            while not self._landed():
+                                self._ready.wait()
                     idx = self._next_yield
                     err = self._errors.pop(idx, None)
                     out = self._results.pop(idx, None)
