@@ -27,6 +27,14 @@ Phases, each printing one JSON line:
                   calls and the bound; both entries and the sparse epilogue
                   under torch.cuda.set_sync_debug_mode("error"), and the
                   synchronizing ops left in one fused step and one lmm step
+  kernel_refine   the refine kernel (the canonical -log10 p of every emitted
+                  t on a card) vs its plain version (stats.neglog10_p_from_t
+                  on the card) and the host refine, on a t grid across its
+                  lane switches at dof 50, 4096, 22986 and 1e6 and on one
+                  OLS cell's lanes (20,480 winners and a 4,096-slot hit
+                  buffer at dof 22,986): the largest gaps in ulps, a lane's
+                  bits independent of its position; times of the kernel,
+                  the plain version and the host refine, and the bound
   scan            the fused path: ``gwas scan --engine fused`` through
                   Study.from_arrays(PlinkBed) -> plan -> ScanSession ->
                   TsvWriter on a synthetic cohort at the paper workload's
@@ -197,15 +205,16 @@ Phases, each printing one JSON line:
                   0, the record ``ok``
 
 The LM phases launch none of the repo's kernels: each reads the counts and
-fails unless all are 0.  Each path's launch counts are set to 0 just before it runs and read just
+fails unless all are 0.  Every GWAS scan on the card launches the refine
+kernel at least once a cell.  Each path's launch counts are set to 0 just before it runs and read just
 after.  Then come a ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device it exits 1 and prints no result.
 
     python3 chip_smoke.py --only build,kernel
 
-runs the device phase and the named phases among ``build``, ``kernel`` and
-``kernel_tstat`` only (a quick check of the kernels); it prints neither the
+runs the device phase and the named phases among ``build``, ``kernel``,
+``kernel_tstat`` and ``kernel_refine`` only (a quick check of the kernels); it prints neither the
 ``kernels`` line nor the ``ok`` line.  ``--only lm_serve`` (and
 ``lm_parity``, ``lm_families``, ``lm_train_parity``, ``lm_train_families``,
 ``lm_train``, ``lm_mesh_one``, ``lm_serve_mesh_one``, ``dryrun``) runs one
@@ -380,6 +389,15 @@ COMPACT_TILE = 4096
 # N x N; the epilogue's ops do not depend on N)
 SYNC_LMM_SAMPLES = 4096
 T_RTOL = 2e-6
+# The refine at one OLS cell: 20,480 traits' winners over 8,192 markers and a
+# 4,096-slot hit buffer (64 survivors, the rest padding), at dof 22,986.
+REFINE_CELL = dict(traits=20480, markers=8192, hit_slots=4096, survivors=64, dof=22986.0)
+REFINE_DOFS = (50.0, 4096.0, 22986.0, 1e6)
+REFINE_RTOL, REFINE_ATOL = 1e-5, 1e-6   # the kernel against the host and plain version
+# Flops of one refine lane (each division, reciprocal and transcendental one):
+# a lane that runs the fraction (the tail, the beta bulk) does 28 a trip for
+# 128 trips plus ~26 around them; an Edgeworth bulk lane ~16.
+REFINE_FLOPS = dict(fraction=128 * 28 + 26, normal=16)
 # the mesh phase: its mesh shapes by card count, and the cells a
 # checkpointed run under the mesh computes before it is cut
 MESH_SHAPES = {4: ((2, 2),), 2: ((2, 1), (1, 2)), 1: ((1, 1),)}
@@ -545,6 +563,7 @@ def reset_launches() -> None:
     ts.tstat_launches = 0
     ts.screen_launches = 0
     ts.compact_launches = 0
+    ts.refine_launches = 0
 
 
 def read_launches() -> dict:
@@ -552,7 +571,19 @@ def read_launches() -> dict:
     from repro_torch.kernels.gwas_dot import gwas_dot as gd
 
     return {"gwas_dot": gd.launches, "tstat": ts.tstat_launches,
-            "screen_compact": ts.screen_launches, "compact_survivors": ts.compact_launches}
+            "screen_compact": ts.screen_launches, "compact_survivors": ts.compact_launches,
+            "refine": ts.refine_launches}
+
+
+def check_refined_on_card(label: str, launches: dict, cells: int) -> None:
+    """Every cell of a scan on the card refines its winners (and its hit
+    slots or survivors, when its screen passes) with the refine kernel."""
+    check(launches["refine"] >= cells > 0,
+          f"{label}: the refine kernel launched {launches['refine']} times for {cells} cells")
+
+
+def launched_besides_refine(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if k != "refine" and v}
 
 
 def gwas_dot_bound(m: int, n: int, p: int, packed_bytes: int, dtype: str) -> tuple[float, str]:
@@ -1041,6 +1072,7 @@ def phase_scan(tmp: str):
         check(timing["launches"][name] == cells,
               f"the fused scan launched {name} {timing['launches'][name]} times, "
               f"not once per cell ({cells})")
+    check_refined_on_card("scan", timing["launches"], cells)
     hits, stats = col.hits()
     check(bool(np.isfinite(stats).all()), "non-finite hit statistics")
     found = {tuple(h) for h in hits.tolist()}
@@ -1118,8 +1150,10 @@ def phase_multivariate(tmp: str, study, cohort) -> Collect:
     out = os.path.join(tmp, "multivariate")
     col, _, timing = _run(study, out, collect=MvCollect(), engine="dense", grid=grid,
                           multivariate=True)
-    check(not any(timing["launches"].values()),
-          f"multivariate: kernels launched {timing['launches']}; the path runs none")
+    check(not launched_besides_refine(timing["launches"]),
+          f"multivariate: kernels launched {timing['launches']}; the path runs only the refine")
+    check_refined_on_card("multivariate", timing["launches"],
+                          timing["grid"][0] * timing["grid"][1])
     for name in ("hits.tsv", "per_trait_best.tsv"):
         with open(os.path.join(tmp, "dense", name), "rb") as a, \
                 open(os.path.join(out, name), "rb") as b:
@@ -1195,7 +1229,8 @@ def phase_multivariate(tmp: str, study, cohort) -> Collect:
                                     device=DEVICE)
     small_col, _, small_timing = _run(small_study, None, engine="dense",
                                       grid=GridSpec(batch_markers=256), multivariate=True)
-    check(not any(small_timing["launches"].values()), "multivariate/small: a kernel ran")
+    check(not launched_besides_refine(small_timing["launches"]),
+          "multivariate/small: a kernel other than the refine ran")
     small_med = _omnibus_medians(small_col.canonical()["omnibus_nlp"], small.effects,
                                  MV_SMALL["n_markers"])
     check(small_med["planted_median_nlp"] > 5.0 and small_med["null_median_nlp"] < 1.0,
@@ -1242,6 +1277,8 @@ def phase_identities(tmp: str, cohort) -> None:
         check((timing["launches"]["compact_survivors"] > 0) == (name != "dense_epilogue"),
               f"identities/{name}: compact_survivors launched "
               f"{timing['launches']['compact_survivors']} times")
+        check_refined_on_card(f"identities/{name}", timing["launches"],
+                              timing["grid"][0] * timing["grid"][1])
         canon[name] = col.canonical()
     result = _bitwise(canon, "sparse", ("dense_epilogue", "blocked", "dense_staging"))
     emit({"phase": "identities", "markers": m, "hits": int(len(canon["sparse"]["hits"])),
@@ -1288,7 +1325,7 @@ class StreamAudit:
         spy(panels, "to_device", lambda arr, device: device)
         spy(sinks, "_host", tensor_dev)
         spy(gd, "gwas_dot_fused", tensor_dev)
-        for name in ("compact_survivors", "screen_compact", "tstat"):
+        for name in ("compact_survivors", "screen_compact", "tstat", "refine_neglog10p_device"):
             spy(ts, name, tensor_dev)
         return self
 
@@ -1296,12 +1333,12 @@ class StreamAudit:
         for mod, name, real in reversed(self._undo):
             setattr(mod, name, real)
 
-    def check_slot_streams(self, label: str, kernels_expected: bool = True) -> dict:
+    def check_slot_streams(self, label: str) -> dict:
         """Every call from an executor slot's threads (its worker, tail and
         panel look-ahead, named by the slot's number) ran on one stream of
         one device, not that device's default stream, and no two slots
-        shared a stream; the slots' kernels were among the calls (unless the
-        path runs none: then its copies and pulls are)."""
+        shared a stream; the slots' kernels were among the calls (the
+        refine kernel on every path)."""
         import re
 
         import torch
@@ -1320,8 +1357,7 @@ class StreamAudit:
         check(len({p for pairs in slots.values() for p in pairs}) == len(slots),
               f"{label}: two slots shared a stream")
         kernels = sorted({c[0] for c in self.calls} - {"to_device", "_host"})
-        check(bool(kernels) == kernels_expected,
-              f"{label}: kernel wrappers called: {kernels}")
+        check("refine_neglog10p_device" in kernels, f"{label}: kernel wrappers called: {kernels}")
         return {"calls": len(self.calls), "slots": {s: sorted(p)[0][0] for s, p in slots.items()},
                 "threads": sorted({c[1].rstrip("0123456789") for c in self.calls}),
                 "kernel_wrappers": kernels, "one_stream_per_slot": True,
@@ -1335,7 +1371,8 @@ def phase_executor(tmp: str, study, fused: Collect, dense: Collect,
     engine once and the dense multivariate screen once (unblocked), each
     canonical-bitwise equal to its serial run on the default stream (the
     omnibus track included), with its kernels launched once per cell from the
-    slot's stream (the multivariate path launches none)."""
+    slot's stream (the multivariate path launches only the refine kernel,
+    which every path launches at least once a cell)."""
     from repro_torch.api import ExecSpec, GridSpec
 
     grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
@@ -1369,8 +1406,9 @@ def phase_executor(tmp: str, study, fused: Collect, dense: Collect,
         for k in kernels:
             check(timing["launches"][k] == cells, f"executor/{name}: {k} launched "
                   f"{timing['launches'][k]} times, not once per cell ({cells})")
+        check_refined_on_card(f"executor/{name}", timing["launches"], cells)
         if mv:
-            check(not any(timing["launches"].values()),
+            check(not launched_besides_refine(timing["launches"]),
                   f"executor/{name}: kernels launched {timing['launches']}")
         base = "dense_multivariate" if mv else engine
         canon = col.canonical()
@@ -1384,7 +1422,7 @@ def phase_executor(tmp: str, study, fused: Collect, dense: Collect,
             "autotune": info["autotune"], "wait_share": info["autotune"]["wait_share"],
             "workers": info["workers"], "placement": info["placement"],
             "slot_prefetch": info["slot_prefetch"],
-            "streams": audit.check_slot_streams(name, kernels_expected=bool(kernels)),
+            "streams": audit.check_slot_streams(name),
         }
     # Control: the reference's order, in which a worker's last blocking
     # claim does not wait for its own tail first and so sleeps one lease
@@ -1442,6 +1480,7 @@ def phase_devices(tmp: str) -> dict:
             for k in kernels:
                 check(timing["launches"][k] == cells, f"{label}: {k} launched "
                       f"{timing['launches'][k]} times, not once per cell ({cells})")
+            check_refined_on_card(label, timing["launches"], cells)
             _bitwise({"serial": serial.canonical(), "multi": col.canonical()}, "serial",
                      ("multi",))
             info = timing["executor"]
@@ -1675,6 +1714,7 @@ def phase_serve(tmp: str, study) -> dict:
         for kernel in ("gwas_dot", "compact_survivors"):
             check(launches[kernel] == cells,
                   f"serve launched {kernel} {launches[kernel]} times, not once per cell ({cells})")
+        check_refined_on_card("serve", launches, cells)
         summary = host.metrics_summary()
         caches = summary["serve"]["caches"]
         check(caches["device_state"]["hits"] >= 1, f"serve: no device-state cache hit {caches}")
@@ -1989,6 +2029,106 @@ def phase_kernel_tstat() -> dict:
     return rows
 
 
+def _refine_cell(seed: int):
+    """One OLS cell's refined lanes: each trait's winner (the t of largest
+    t^2 over the batch's null markers), then the hit buffer: survivors
+    past the screen, then padding t = 0."""
+    import torch
+
+    c = REFINE_CELL
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    t = torch.randn(c["markers"], c["traits"], generator=gen, device=DEVICE)
+    best = torch.gather(t, 0, torch.argmax(t * t, dim=0, keepdim=True))[0]
+    del t
+    hits = torch.zeros(c["hit_slots"], device=DEVICE)
+    hits[: c["survivors"]] = 5.5 + 3.0 * torch.rand(c["survivors"], generator=gen, device=DEVICE)
+    return torch.cat([best, hits])
+
+
+def _ulp_gap(got, want) -> dict:
+    """How far two float32 -log10 p buffers (>= 0) lie apart: the share of
+    equal bits, the largest gap in ulps, absolute and relative (where the
+    value is at least 1e-3)."""
+    import numpy as np
+
+    a = np.asarray(got, np.float32) + np.float32(0.0)   # -0 -> +0
+    b = np.asarray(want, np.float32) + np.float32(0.0)
+    ulps = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+    big = np.abs(b) >= 1e-3
+    return {"equal_share": float(np.mean(ulps == 0)), "max_ulps": int(ulps.max()),
+            "max_abs": float(np.abs(a - b).max()),
+            "max_rel": float((np.abs(a - b)[big] / b[big]).max()) if big.any() else 0.0}
+
+
+def phase_kernel_refine() -> dict:
+    """The refine kernel against its plain version on the card and the
+    host refine, within REFINE_RTOL/REFINE_ATOL, on the lane grid at each
+    of REFINE_DOFS and at one OLS cell; bits independent of position.
+    ``ms`` is per call of the whole route (``stats.refine_neglog10p``), 20
+    calls back to back; ``device_ms`` the kernel's 20 calls replayed from a
+    CUDA graph; ``plain_ms`` the plain version's eager ops on the card;
+    ``host_ms`` the host refine of the same lanes (wall clock, median of 3)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import stats
+    from repro_torch.kernels import tstat as ts
+
+    def held(label, t, dof):
+        got = stats.refine_neglog10p(t, dof)
+        plain = stats.neglog10_p_from_t(t, dof)
+        host = stats.refine_neglog10p(t.cpu().numpy(), dof)
+        torch.cuda.synchronize()
+        k = got.cpu().numpy()
+        for name, want in (("plain", plain.cpu().numpy()), ("host", host)):
+            check(np.allclose(k, want, rtol=REFINE_RTOL, atol=REFINE_ATOL),
+                  f"refine {label}: kernel vs {name} past rtol {REFINE_RTOL} atol {REFINE_ATOL}"
+                  f": {_ulp_gap(k, want)}")
+        return got, {"vs_plain": _ulp_gap(k, plain.cpu().numpy()), "vs_host": _ulp_gap(k, host)}
+
+    grid = {}
+    for dof in REFINE_DOFS:
+        t = torch.from_numpy(stats._refine_grid(dof)).to(DEVICE)
+        got, grid[str(dof)] = held(f"grid/{dof}", t, dof)
+        check(float(got[0]) == 0.0, f"refine grid/{dof}: t = 0 gives {float(got[0])}")
+    c = REFINE_CELL
+    dof = c["dof"]
+    t = _refine_cell(seed=31)
+    n = t.numel()
+    launches = ts.refine_launches
+    got, gap = held("cell", t, dof)
+    check(ts.refine_launches == launches + 1, "refine cell: not one launch")
+    for lo, hi in ((0, 1), (5, 69), (20000, 20600), (n - 7, n)):
+        part = stats.refine_neglog10p(t[lo:hi].clone(), dof)
+        check(torch.equal(part.view(torch.int32), got[lo:hi].view(torch.int32)),
+              f"refine cell: lanes [{lo}, {hi}) differ alone")
+    scalars = stats._refine_scalars(dof)
+    device_ms, replayed = graph_ms(lambda: ts.refine_neglog10p_device(t, scalars))
+    check(torch.equal(replayed, got), "refine cell: the replayed values differ")
+    t_host = t.cpu().numpy()
+    host_runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        stats.refine_neglog10p(t_host, dof)
+        host_runs.append(1e3 * (time.perf_counter() - t0))
+    fraction = int((t * t > scalars.t2_switch).sum())
+    flops = fraction * REFINE_FLOPS["fraction"] + (n - fraction) * REFINE_FLOPS["normal"]
+    bound_ms, bound_by = bytes_bound(8.0 * n, float(flops))
+    row = {
+        "kernel": "refine", "lanes": n, "dof": dof, "fraction_lanes": fraction,
+        "ms": cuda_ms(lambda: stats.refine_neglog10p(t, dof), inner=20),
+        "device_ms": device_ms,
+        "plain_ms": cuda_ms(lambda: stats.neglog10_p_from_t(t, dof), inner=3),
+        "host_ms": statistics.median(host_runs), "host_ms_runs": host_runs,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": 8 * n, "flops": flops,
+        "library_ms": None, **gap,
+        "max_abs_err": gap["vs_plain"]["max_abs"],
+    }
+    row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+    emit({"phase": "kernel_refine", "grid": grid, **row})
+    return row
+
+
 def phase_lmm_scan(tmp: str) -> dict:
     """The mixed-model path at the paper workload's width, through the
     entry points a user calls; every planted effect must be a hit."""
@@ -2019,6 +2159,7 @@ def phase_lmm_scan(tmp: str) -> dict:
           f"times, not once per cell ({cells})")
     check(timing["launches"]["compact_survivors"] == 0,
           "the lmm scan compacted outside the screen kernel")
+    check_refined_on_card("lmm_scan", timing["launches"], cells)
     hits, stats = col.hits()
     check(bool(np.isfinite(stats).all()), "non-finite hit statistics")
     planted = {(m, t) for m, t, _ in cohort.effects}
@@ -4606,6 +4747,7 @@ def _in_tmp(phase):
 
 
 QUICK_PHASES = {"build": phase_build, "kernel": phase_kernel, "kernel_tstat": phase_kernel_tstat,
+                "kernel_refine": phase_kernel_refine,
                 "devices": _in_tmp(phase_devices), "mesh": _in_tmp(phase_mesh),
                 "lm_parity": phase_lm_parity, "lm_serve": phase_lm_serve,
                 "lm_families": phase_lm_families, "lm_train_parity": phase_lm_train_parity,
@@ -4643,6 +4785,7 @@ def main(argv: list[str]) -> int:
     phase_build()
     main_row = phase_kernel()
     tstat_rows = phase_kernel_tstat()
+    refine_row = phase_kernel_refine()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         study, cohort, fused, timing = phase_scan(tmp)
@@ -4700,6 +4843,16 @@ def main(argv: list[str]) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    # the refine replaces no Pallas kernel: it moves the reference's host
+    # refine onto the card, and runs on every GWAS scan's cells
+    kernels.append({
+        "name": "refine", "route": "cuda", "source": "src/repro_torch/kernels/csrc/tstat.cu",
+        "replaces": None, "moves": "src/repro/core/stats.py::refine_neglog10p (host)",
+        "launches": timing["launches"]["refine"], "max_abs_err": refine_row["max_abs_err"],
+        "ms": refine_row["ms"], "plain_ms": refine_row["plain_ms"],
+        "host_ms": refine_row["host_ms"], "bound_ms": refine_row["bound_ms"],
+        "bound_by": refine_row["bound_by"], "library_ms": None,
+    })
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -51,6 +51,17 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _refined(t, dof: float, *, on=None) -> np.ndarray:
+    """The canonical refine of ``t`` as host float32 (DESIGN.md §13): a
+    tensor off the CPU is refined on its card and the values pulled; host
+    values are first copied to the card ``on`` lies on (the step output
+    they were read from), so every emitted value of a CUDA scan goes
+    through the card's kernel, and a CPU scan's through the host refine."""
+    if isinstance(on, torch.Tensor) and not on.is_cpu:
+        t = torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(on.device)
+    return _host(_stats.refine_neglog10p(t, float(dof))).astype(np.float32, copy=False)
+
+
 def _screen_any(t_tile, t2_screen: float) -> bool:
     """Scalar device probe: does any lane pass the t^2 screen?  max is an
     exact selection, so ``max(t^2) >= thr`` iff some lane passes — only one
@@ -89,8 +100,8 @@ def extract_hits(view: "BatchView", threshold: float) -> tuple[np.ndarray, np.nd
     if view.is_sparse and not view.overflowed:
         # Sparse epilogue (DESIGN.md §13): the device already compacted the
         # screened lanes; only the tiny fixed-capacity buffers cross PCIe,
-        # and the exact CF runs host-side through the canonical
-        # (capacity, dof) executable.  The screen admits a sub-threshold
+        # and the exact CF runs through the canonical refine where the
+        # buffers lie.  The screen admits a sub-threshold
         # margin — the exact nlp filter here rejects it, leaving precisely
         # the dense path's hit set in the dense path's row-major order
         # (first-K compaction preserves it).
@@ -120,9 +131,9 @@ def extract_hits(view: "BatchView", threshold: float) -> tuple[np.ndarray, np.nd
         # with the identical f32 square-and-compare the device screen uses
         # (same t bits -> same survivor set), gather survivors in flat
         # row-major order (the compaction order), and refine them through
-        # the same (capacity,)-shaped executable the compact path uses —
-        # chunk 0 of the zero-padded buffer is elementwise identical to a
-        # non-overflowed compact buffer, so every emitted bit matches.
+        # the canonical refine on the device the t tile came from, as the
+        # compact path does — the same t through the same function, so every
+        # emitted bit matches.
         if "t" not in view._cache and not _screen_any(
             view._out["t"], view.t2_screen
         ):
@@ -132,9 +143,7 @@ def extract_hits(view: "BatchView", threshold: float) -> tuple[np.ndarray, np.nd
         survivors = np.nonzero(np.square(flat_t) >= np.float32(view.t2_screen))[0]
         if survivors.size == 0:
             return hits, stats
-        nlp_vals = _stats.refine_neglog10p(
-            flat_t[survivors], view.dof, width=_stats.REFINE_WIDTH
-        ).astype(np.float32)
+        nlp_vals = _refined(flat_t[survivors], view.dof, on=view._out["t"])
         keep = nlp_vals >= threshold
         if keep.any():
             flat = survivors[keep].astype(np.int64)
@@ -187,13 +196,15 @@ class BatchView:
     A *sparse* cell (DESIGN.md §13) carries compacted
     ``hit_idx``/``hit_r``/``hit_t`` buffers instead of the dense nlp
     tile.  All *emitted* -log10 p values — ``hit_nlp``, ``best_nlp``, and
-    the reconstructed ``nlp`` tile — are evaluated host-side through the
-    canonical refine (``stats.refine_neglog10p``) in fixed
-    ``stats.REFINE_WIDTH`` chunks, so sparse and dense cells agree bitwise
-    and the emitted bits cannot depend on a buffer's length, the configured
-    capacity or the device that computed t.  ``t2_screen`` carries the scan's screen
-    threshold so dense-mode extraction can mirror the sparse screen
-    exactly.
+    the reconstructed ``nlp`` tile — go through the canonical refine
+    (``stats.refine_neglog10p``) where the step's outputs lie: on the card
+    for a CUDA step (the refine kernel, then a pull of the values), on the
+    host in fixed ``stats.REFINE_WIDTH`` chunks for a CPU one.  So sparse
+    and dense cells agree bitwise, and the emitted bits cannot depend on a
+    buffer's length, the configured capacity, the slot or the card that
+    computed t; a CUDA scan's values differ from a CPU scan's by float32
+    ulps.  ``t2_screen`` carries the scan's screen threshold so dense-mode
+    extraction can mirror the sparse screen exactly.
     """
 
     def __init__(
@@ -260,16 +271,14 @@ class BatchView:
 
     @property
     def hit_nlp(self) -> np.ndarray:
-        """Exact -log10 p on the compacted lanes, refined host-side
-        through the canonical (capacity, dof) executable.  Padding slots
-        hold refine(0) — callers mask on ``hit_idx >= 0``."""
+        """Exact -log10 p on the compacted lanes, through the canonical
+        refine where ``hit_t`` lies.  Padding slots hold refine(0) — callers
+        mask on ``hit_idx >= 0``."""
         if "hit_nlp" not in self._cache:
             if "hit_nlp" in self._out:  # synthetic/raw step dicts
                 self._cache["hit_nlp"] = _host(self._out["hit_nlp"])
             else:
-                self._cache["hit_nlp"] = _stats.refine_neglog10p(
-                    self.hit_t, float(self.dof), width=_stats.REFINE_WIDTH
-                ).astype(np.float32)
+                self._cache["hit_nlp"] = _refined(self._out["hit_t"], self.dof)
         return self._cache["hit_nlp"]
 
     @property
@@ -279,16 +288,14 @@ class BatchView:
     @property
     def best_nlp(self) -> np.ndarray:
         """Per-trait winner -log10 p.  When the step emitted the winner t
-        (``batch_best_t``), the value is refined host-side through the
-        canonical (P, dof) executable — identical bits whether the cell ran
-        the sparse or the dense epilogue.  Raw step dicts without it fall
-        back to the in-step tile value."""
+        (``batch_best_t``), the value goes through the canonical refine
+        where it lies — identical bits whether the cell ran the sparse or
+        the dense epilogue.  Raw step dicts without it fall back to the
+        in-step tile value."""
         if "batch_best_t" in self._out and self.dof is not None:
             if "best_nlp" not in self._cache:
-                self._cache["best_nlp"] = _stats.refine_neglog10p(
-                    self._pull("batch_best_t")[: self.n_traits], float(self.dof),
-                    width=_stats.REFINE_WIDTH,
-                ).astype(np.float32)
+                self._cache["best_nlp"] = _refined(
+                    self._out["batch_best_t"][: self.n_traits], self.dof)
             return self._cache["best_nlp"]
         return self._pull("batch_best_nlp")[: self.n_traits]
 
@@ -300,24 +307,17 @@ class BatchView:
     def nlp(self) -> np.ndarray:
         if "nlp" not in self._out:
             # Sparse cell: the dense tile never existed on device.
-            # Reconstruct it on the host from the pulled t through the
-            # canonical fixed-width refine executable (full-tile QC /
-            # report paths only — extraction never reads this).
+            # Reconstruct it from t through the canonical refine where t
+            # lies (full-tile QC / report paths only — extraction never
+            # reads this).
             if "nlp" not in self._cache:
                 if self.dof is None:
                     raise RuntimeError(
                         "sparse cell without dof: BatchView cannot "
                         "reconstruct the nlp tile"
                     )
-                t_np = self.t
-                self._cache["nlp"] = (
-                    _stats.refine_neglog10p(
-                        t_np.ravel(), float(self.dof),
-                        width=_stats.REFINE_WIDTH,
-                    )
-                    .astype(np.float32)
-                    .reshape(t_np.shape)
-                )
+                t = self._out["t"][: self.m_batch]
+                self._cache["nlp"] = _refined(t, self.dof).reshape(tuple(t.shape))
             return self._cache["nlp"]
         return self._pull("nlp")[: self.m_batch]
 

@@ -29,10 +29,12 @@ from __future__ import annotations
 import functools
 import math
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import tstat as _tstat
 from repro_torch.runtime import spans
 
 __all__ = [
@@ -54,6 +56,10 @@ LOG10E = 0.4342944819032518  # log10(e)
 _CF_ITERS = 128     # fixed Lentz trips; ample inside the convergence region
 _T2_SWITCH = 6.0    # t^2 above this -> log-space tail; below -> bulk lanes
 _FPMIN = 1e-30
+_SQRT_HALF = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
+_NU_BETAINC = 4096.0   # at or below this dof the bulk lane is the beta function
+_T2_ERFC_MAX = 144.0   # erfc underflows in f32 past |t| ~ 12
 
 
 def t_from_r(r: torch.Tensor, dof: float, *, eps: float = 1e-12) -> torch.Tensor:
@@ -113,13 +119,55 @@ def _betaln_half(a: float) -> float:
     return math.lgamma(a) + _LGAMMA_HALF - math.lgamma(a + 0.5)
 
 
-def _log_p_tail(nu: float, t2: torch.Tensor) -> torch.Tensor:
+class RefineScalars(NamedTuple):
+    """The per-scan scalars of ``neglog10_p_from_t`` for one dof, computed
+    once on the host and shared by both routes of the canonical refine (the
+    host's torch ops and the card's kernel, ``kernels.tstat``), in the order
+    the kernel's C entry takes them.  Python floats: each op that reads one
+    rounds it to float32, as a torch op does a scalar operand."""
+
+    nu: float           # float32(dof)
+    t2_switch: float    # t^2 above it: the tail lane; at or below: the bulk lane
+    x_cf_max: float     # nu / (nu + 6): the tail fraction's clamp on x
+    z_switch: float     # 3 nu / (nu + 2): I_z(1/2, b) at or below, I_x(b, 1/2) above
+    betaln_half: float  # betaln(nu/2, 1/2)
+    log_a: float        # log(nu/2)
+
+
+def _refine_scalars(dof: float) -> RefineScalars:
+    nu = float(np.float32(dof))
+    a = nu * 0.5
+    return RefineScalars(
+        nu=nu,
+        t2_switch=float(np.float32(min(max(nu / 2000.0, _T2_SWITCH), _T2_ERFC_MAX))),
+        x_cf_max=nu / (nu + _T2_SWITCH),
+        z_switch=3.0 * nu / (nu + 2.0),
+        betaln_half=_betaln_half(a),
+        log_a=math.log(a),
+    )
+
+
+def _refine_grid(dof: float) -> np.ndarray:
+    """float32 t on which the refine's routes are checked against each
+    other and the float64 reference: a grid across the lane switches
+    (``t2_switch``, ``3 nu / (nu + 2)``, ``nu / 2000``), plus 0, negative t
+    and |t| up to 1e4."""
+    s = _refine_scalars(dof)
+    around = [math.sqrt(e) * f for e in (s.t2_switch, s.z_switch, dof / 2000.0)
+              for f in np.linspace(0.9, 1.1, 41)]
+    grid = np.concatenate([[0.0], np.linspace(0.01, 40.0, 400), np.geomspace(40.0, 1e4, 60),
+                           around])
+    return np.concatenate([grid, -grid[1::3]]).astype(np.float32)
+
+
+def _log_p_tail(s: RefineScalars, t2: torch.Tensor) -> torch.Tensor:
     """``log I_x(nu/2, 1/2)`` at ``x = nu/(nu+t^2)`` — the two-sided t tail —
     with every term computed from the well-conditioned ratio ``t^2/nu``.
     Lanes below ``_T2_SWITCH`` are clamped into the convergence region and
     discarded by the caller."""
+    nu = s.nu
     a = nu * 0.5
-    x_cf = torch.minimum(nu / (nu + t2), torch.full_like(t2, nu / (nu + _T2_SWITCH)))
+    x_cf = torch.minimum(nu / (nu + t2), torch.full_like(t2, s.x_cf_max))
     cf = _betacf(torch.full_like(t2, a), torch.full_like(t2, 0.5), x_cf)
     t2s = torch.clamp(t2, min=_T2_SWITCH)
     log_x_term = -a * torch.log1p(t2s / nu)
@@ -127,13 +175,13 @@ def _log_p_tail(nu: float, t2: torch.Tensor) -> torch.Tensor:
     return (
         log_x_term
         + log_1mx_term
-        - _betaln_half(a)
-        - math.log(a)
+        - s.betaln_half
+        - s.log_a
         + torch.log(torch.clamp(cf, min=_FPMIN))
     )
 
 
-def _p_bulk_beta(nu: float, t2: torch.Tensor) -> torch.Tensor:
+def _p_bulk_beta(s: RefineScalars, t2: torch.Tensor) -> torch.Tensor:
     """Two-sided p on the bulk lane for ``nu <= 4096``.
 
     With ``b = nu/2``, ``z = t^2/(nu+t^2)`` and ``x = 1 - z``, both
@@ -142,23 +190,18 @@ def _p_bulk_beta(nu: float, t2: torch.Tensor) -> torch.Tensor:
     only the leading ``1/a`` and the continued fraction differ.  Lanes with
     ``t^2 <= 3 nu/(nu+2)`` take ``p = 1 - I_z(1/2, b)``, the rest
     ``p = I_x(b, 1/2)`` — each where its fraction converges."""
+    nu = s.nu
     b = nu * 0.5
-    use_z = t2 <= 3.0 * nu / (nu + 2.0)
+    use_z = t2 <= s.z_switch
     half = torch.full_like(t2, 0.5)
     bb = torch.full_like(t2, b)
     z = t2 / (nu + t2)
     cf = _betacf(torch.where(use_z, half, bb), torch.where(use_z, bb, half),
                  torch.where(use_z, z, 1.0 - z))
-    log_pref = -b * torch.log1p(t2 / nu) + 0.5 * (torch.log(t2) - torch.log(nu + t2)) - _betaln_half(b)
-    log_inv_a = torch.where(use_z, torch.full_like(t2, -math.log(0.5)), torch.full_like(t2, -math.log(b)))
+    log_pref = -b * torch.log1p(t2 / nu) + 0.5 * (torch.log(t2) - torch.log(nu + t2)) - s.betaln_half
+    log_inv_a = torch.where(use_z, torch.full_like(t2, -math.log(0.5)), torch.full_like(t2, -s.log_a))
     part = torch.exp(log_pref + log_inv_a + torch.log(torch.clamp(cf, min=_FPMIN)))
     return torch.where(use_z, 1.0 - part, part)
-
-
-_SQRT_HALF = 0.7071067811865476
-_INV_SQRT_2PI = 0.3989422804014327
-_NU_BETAINC = 4096.0   # at or below this dof the bulk lane is the beta function
-_T2_ERFC_MAX = 144.0   # erfc underflows in f32 past |t| ~ 12
 
 
 def neglog10_p_from_t(t, dof: float) -> torch.Tensor:
@@ -175,18 +218,18 @@ def neglog10_p_from_t(t, dof: float) -> torch.Tensor:
     depends only on it is made once in Python.
     """
     t = torch.as_tensor(t, dtype=torch.float32)
-    nu = float(np.float32(dof))
+    s = _refine_scalars(dof)
+    nu, t2_switch = s.nu, s.t2_switch
     t2 = t * t
-    t2_switch = float(np.float32(min(max(nu / 2000.0, _T2_SWITCH), _T2_ERFC_MAX)))
 
-    log_p_tail = _log_p_tail(nu, torch.clamp(t2, min=t2_switch))
+    log_p_tail = _log_p_tail(s, torch.clamp(t2, min=t2_switch))
     if nu > _NU_BETAINC:
         abs_t = torch.abs(t)
         q_norm = 0.5 * torch.special.erfc(abs_t * _SQRT_HALF)
         phi = _INV_SQRT_2PI * torch.exp(-0.5 * torch.clamp(t2, max=160.0))
         p_bulk = 2.0 * (q_norm + (abs_t * t2 + abs_t) * phi / (4.0 * nu))
     else:
-        p_bulk = _p_bulk_beta(nu, torch.clamp(t2, max=t2_switch))
+        p_bulk = _p_bulk_beta(s, torch.clamp(t2, max=t2_switch))
     log_p_bulk = torch.log(torch.clamp(p_bulk, 1e-38, 1.0))
 
     log_p = torch.where(t2 > t2_switch, log_p_tail, log_p_bulk)
@@ -262,42 +305,64 @@ def t2_screen_threshold(threshold_nlp: float, dof: float) -> float | None:
     return float(np.nextafter(np.float32(lo), np.float32(0.0)))
 
 
-# Canonical chunk width for refining hit buffers.  Every emitted -log10 p —
-# compact buffer, overflow fallback, dense audit, per-trait winners, tile
-# reconstruction — is evaluated in fixed (REFINE_WIDTH,) chunks, so the
-# emitted bits cannot depend on a buffer's length or position: a full SIMD
-# multiple, so no scalar remainder lanes exist whose position could change a
-# bit.
+# Canonical chunk width of the host refine.  Every emitted -log10 p of a
+# CPU scan — compact buffer, overflow fallback, dense audit, per-trait
+# winners, tile reconstruction — is evaluated in fixed (REFINE_WIDTH,)
+# chunks, so the emitted bits cannot depend on a buffer's length or
+# position: a full SIMD multiple, so no scalar remainder lanes exist whose
+# position could change a bit.  The card's refine kernel is elementwise and
+# needs no chunks.
 REFINE_WIDTH = 64
 
 
-def refine_neglog10p(
-    t_values: np.ndarray, dof: float, *, width: int | None = REFINE_WIDTH
-) -> np.ndarray:
-    """Canonical exact-tail refine on the host CPU.
+def refine_neglog10p(t_values, dof: float, *, width: int | None = REFINE_WIDTH):
+    """The canonical exact-tail refine: ``neglog10_p_from_t`` on a t buffer,
+    the one function every emitted -log10 p of a scan goes through.
 
-    Evaluates ``neglog10_p_from_t`` on a 1-D t buffer.  With ``width`` (the
-    default, ``REFINE_WIDTH``), the buffer is zero-padded and evaluated in
+    It runs where ``t_values`` lies.  A numpy array or a CPU tensor is
+    refined on the host (a 1-D float32 array back): with ``width`` (the
+    default, ``REFINE_WIDTH``) the buffer is zero-padded and evaluated in
     fixed ``(width,)`` chunks, so the sparse compact path, the overflow
     fallback, the dense audit mode, the per-trait winners and the full-tile
-    reconstruction all feed slot-identical chunks to one function and produce
-    bit-identical values for the same t.  Padding lanes (t=0) map to nlp=0
-    and are sliced off.  ``width=None`` evaluates the buffer as one call.
+    reconstruction all feed slot-identical chunks to one function and
+    produce bit-identical values for the same t.  Padding lanes (t=0) map
+    to nlp=0 and are sliced off.  ``width=None`` evaluates the buffer as one
+    call.  A CUDA tensor is refined on its card by one launch of the refine
+    kernel (``kernels.tstat.refine_neglog10p_device``) on the current
+    stream, into a 1-D float32 tensor there; the kernel is elementwise, so
+    a lane's bits depend on its t alone, and a ``width`` other than the
+    default raises.  The two routes agree to a few float32 ulps, not
+    bitwise.
     """
+    if _on_card(t_values):
+        if width != REFINE_WIDTH:
+            raise ValueError("the card's refine is elementwise and takes no chunk width; "
+                             f"got width={width!r}")
+        with spans.span("refine"):
+            spans.count("refine_lanes_device", t_values.numel())
+            return _tstat.refine_neglog10p_device(t_values, _refine_scalars(dof))
+    flat = np.asarray(t_values, np.float32).ravel()
     with spans.span("refine_wait"):
         _REFINE_LOCK.acquire()
     try:
         with spans.span("refine"):
-            return _refine(t_values, dof, width)
+            spans.count("refine_lanes_host", flat.shape[0])
+            return _refine(flat, dof, width)
     finally:
         _REFINE_LOCK.release()
 
 
-# One refine at a time per process.  A refine is a chain of a few hundred
-# small eager ops, each of which releases and retakes the GIL; when the
-# executor's slot tails refine concurrently they convoy on the GIL, and
+def _on_card(t_values) -> bool:
+    """The refine's route: a tensor off the CPU goes to the card's kernel."""
+    return isinstance(t_values, torch.Tensor) and t_values.device.type != "cpu"
+
+
+# One host refine at a time per process.  A refine is a chain of a few
+# hundred small eager ops, each of which releases and retakes the GIL; when
+# the executor's slot tails refine concurrently they convoy on the GIL, and
 # every call runs several times slower than alone.  Taking turns costs
-# nothing in bits: the same chunks run through the same ops.
+# nothing in bits: the same chunks run through the same ops.  The card's
+# route takes no turn: a launch does not convoy.
 _REFINE_LOCK = threading.Lock()
 
 

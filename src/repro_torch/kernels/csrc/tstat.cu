@@ -57,6 +57,30 @@
 //     earlier launch carries another epoch and reads as not yet posted, so
 //     the workspace needs no reset between launches on one stream.
 //   * Every sum is an integer, so the output does not depend on the schedule.
+//
+// The canonical refine (refine_kernel, entry refine_launch) replaces no
+// Pallas kernel: it moves the reference's host refine
+// (src/repro/core/stats.py::refine_neglog10p, the float32 -log10 p of every
+// emitted t) onto the card.  It computes src/repro_torch/core/stats.py::
+// neglog10_p_from_t lane by lane: the tail's log-space modified-Lentz
+// fraction (128 fixed trips), the Edgeworth-corrected normal bulk above
+// dof 4096 and the beta-function bulk at or below it, chosen by
+// t^2 > t2_switch, then clamped at 0.  One thread a lane, no cross-lane
+// work, so a lane's bits depend on its t alone.  A lane evaluates only the
+// branch it keeps (the host evaluates both and selects; the kept value is
+// the same function), and the tail and the beta bulk share one fraction
+// call, so a warp's lanes never run the fraction twice.  The float32
+// operations follow the host's torch ops in order, each rounded once
+// (__fmul_rn and friends: no FMA contraction), with the host's quirks: a
+// scalar over a tensor is a reciprocal and a product, a tensor over a
+// scalar an IEEE division; logf, log1pf, expf and erfcf are the IEEE ones
+// (no fast math), so a lane agrees with the host to a few float32 ulps.
+// The per-scan scalars come from the host (core/stats.py::_refine_scalars).
+// Bound on an H100 SXM: launch latency.  It reads t and writes the value
+// (8 bytes a lane) and does ~3k flops a lane (two half-steps of the
+// fraction a trip, each two divisions and a reciprocal): at 24,576 lanes
+// 0.2 MB and 74 MFLOP, 1.1 us at 67 TFLOP/s fp32, far below a launch; a
+// lane's 256 dependent half-steps set the kernel's own time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -255,6 +279,98 @@ compact_kernel(const float* __restrict__ src, float* __restrict__ t_out,
   }
 }
 
+// ------------------------------------------------------------------ refine
+
+constexpr int REFINE_THREADS = 128;
+constexpr int CF_ITERS = 128;
+// The host's scalar constants, rounded to float32 as a torch op rounds them.
+constexpr float FPMIN = static_cast<float>(1e-30);
+constexpr float P_MIN = static_cast<float>(1e-38);
+constexpr float NU_BETAINC = 4096.f;
+constexpr float SQRT_HALF = static_cast<float>(0.7071067811865476);
+constexpr float INV_SQRT_2PI = static_cast<float>(0.3989422804014327);
+constexpr float LOG_2 = static_cast<float>(0.6931471805599453);   // -log(1/2)
+constexpr float NEG_LOG10E = static_cast<float>(-0.4342944819032518);
+
+// torch.where(abs(v) < FPMIN, FPMIN, v): NaN stays NaN.
+__device__ __forceinline__ float tiny_floor(float v) {
+  return fabsf(v) < FPMIN ? FPMIN : v;
+}
+
+// torch.clamp(v, min=lo) and (v, max=hi): NaN stays NaN, as in torch.
+__device__ __forceinline__ float clamp_min(float v, float lo) { return v < lo ? lo : v; }
+__device__ __forceinline__ float clamp_max(float v, float hi) { return v > hi ? hi : v; }
+
+// stats._betacf: the modified-Lentz fraction for I_x(a, b), 128 trips.
+__device__ float betacf(float a, float b, float x) {
+  const float qab = __fadd_rn(a, b), qap = __fadd_rn(a, 1.f), qam = __fsub_rn(a, 1.f);
+  float c = 1.f;
+  float d = __frcp_rn(tiny_floor(__fsub_rn(1.f, __fdiv_rn(__fmul_rn(qab, x), qap))));
+  float h = d;
+#pragma unroll 4
+  for (int m = 0; m < CF_ITERS; ++m) {
+    const float mf = static_cast<float>(m + 1), m2 = 2.f * mf;  // exact
+    float aa = __fdiv_rn(__fmul_rn(__fmul_rn(__fsub_rn(b, mf), mf), x),
+                         __fmul_rn(__fadd_rn(qam, m2), __fadd_rn(a, m2)));
+    d = __frcp_rn(tiny_floor(__fadd_rn(1.f, __fmul_rn(aa, d))));
+    c = tiny_floor(__fadd_rn(1.f, __fdiv_rn(aa, c)));
+    h = __fmul_rn(__fmul_rn(h, d), c);
+    aa = __fdiv_rn(__fmul_rn(__fmul_rn(-__fadd_rn(a, mf), __fadd_rn(qab, mf)), x),
+                   __fmul_rn(__fadd_rn(a, m2), __fadd_rn(qap, m2)));
+    d = __frcp_rn(tiny_floor(__fadd_rn(1.f, __fmul_rn(aa, d))));
+    c = tiny_floor(__fadd_rn(1.f, __fdiv_rn(aa, c)));
+    h = __fmul_rn(__fmul_rn(h, d), c);
+  }
+  return h;
+}
+
+__global__ void __launch_bounds__(REFINE_THREADS)
+refine_kernel(const float* __restrict__ t_in, float* __restrict__ nlp, long long n,
+              float nu, float t2_switch, float x_cf_max, float z_switch,
+              float betaln_half, float log_a) {
+  const long long i = (long long)blockIdx.x * REFINE_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const float t = t_in[i];
+  const float t2 = __fmul_rn(t, t);
+  const float a = __fmul_rn(nu, 0.5f);  // exact: also b of the bulk
+  // The host clamps t2 at t2_switch (and the tail at 6) from below for the
+  // tail and from above for the beta bulk: a kept lane is left as it is.
+  const bool tail = t2 > t2_switch;
+  const bool use_z = !tail && t2 <= z_switch;  // the beta bulk's I_z(1/2, b)
+  float log_p;
+  if (!tail && nu > NU_BETAINC) {
+    // The Edgeworth-corrected normal: no fraction.
+    const float abs_t = fabsf(t);
+    const float q_norm = __fmul_rn(0.5f, erfcf(__fmul_rn(abs_t, SQRT_HALF)));
+    const float phi = __fmul_rn(INV_SQRT_2PI, expf(__fmul_rn(-0.5f, clamp_max(t2, 160.f))));
+    const float corr = __fdiv_rn(__fmul_rn(__fadd_rn(__fmul_rn(abs_t, t2), abs_t), phi),
+                                 __fmul_rn(4.f, nu));
+    log_p = logf(clamp_max(clamp_min(__fmul_rn(2.f, __fadd_rn(q_norm, corr)), P_MIN), 1.f));
+  } else {
+    // One fraction for the tail (stats._log_p_tail: I_x(a, 1/2)) and the
+    // beta bulk (stats._p_bulk_beta: I_z(1/2, b) or I_x(b, 1/2), each where
+    // it converges).
+    const float z = __fdiv_rn(t2, __fadd_rn(t2, nu));
+    const float x = tail ? clamp_max(__fmul_rn(__frcp_rn(__fadd_rn(t2, nu)), nu), x_cf_max)
+                         : (use_z ? z : __fsub_rn(1.f, z));
+    const float cf = betacf(use_z ? 0.5f : a, use_z ? a : 0.5f, x);
+    const float log_cf = logf(clamp_min(cf, FPMIN));
+    // -a log1p(t2/nu) + (log t2 - log(nu + t2))/2 - betaln(a, 1/2)
+    const float log_pref = __fsub_rn(
+        __fadd_rn(__fmul_rn(-a, log1pf(__fdiv_rn(t2, nu))),
+                  __fmul_rn(0.5f, __fsub_rn(logf(t2), logf(__fadd_rn(t2, nu))))),
+        betaln_half);
+    if (tail) {
+      log_p = __fadd_rn(__fsub_rn(log_pref, log_a), log_cf);
+    } else {
+      const float part = expf(__fadd_rn(__fadd_rn(log_pref, use_z ? LOG_2 : -log_a), log_cf));
+      const float p = use_z ? __fsub_rn(1.f, part) : part;
+      log_p = logf(clamp_max(clamp_min(p, P_MIN), 1.f));
+    }
+  }
+  nlp[i] = clamp_min(__fmul_rn(NEG_LOG10E, log_p), 0.f);
+}
+
 // Tiles for n elements; n == 0 still takes one tile, which writes count and
 // the -1 fill.
 inline unsigned tiles_for(long long n) {
@@ -309,5 +425,19 @@ extern "C" int compact_launch(const void* src, void* t, void* idx, void* count, 
         static_cast<const float*>(src), static_cast<float*>(t), static_cast<int*>(idx),
         static_cast<int*>(count), static_cast<unsigned long long*>(work), n, capacity, epoch,
         dof, t2_screen, eps);
+  });
+}
+
+// The canonical refine: nlp[i] = -log10 p of t[i] at the scan's dof, from
+// the per-scan scalars of core/stats.py::_refine_scalars.
+extern "C" int refine_launch(const void* t, void* nlp, long long n, float nu, float t2_switch,
+                             float x_cf_max, float z_switch, float betaln_half, float log_a,
+                             int device, void* stream) {
+  if (n <= 0) return 0;
+  return on_device(device, [&] {
+    refine_kernel<<<static_cast<unsigned>((n + REFINE_THREADS - 1) / REFINE_THREADS),
+                    REFINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(t), static_cast<float*>(nlp), n, nu, t2_switch, x_cf_max,
+        z_switch, betaln_half, log_a);
   });
 }

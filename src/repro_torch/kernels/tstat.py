@@ -1,16 +1,21 @@
 """Wrappers around the hand-written Hopper t-statistic kernels
 (``kernels/csrc/tstat.cu``), the ports of the Pallas TPU kernels
 ``repro.kernels.tstat._tstat_kernel`` (``tstat``) and ``_screen_kernel``
-(``screen_compact``), and the t mode of the screen (``compact_survivors``),
+(``screen_compact``), the t mode of the screen (``compact_survivors``),
 which compacts the survivors of an existing t tile for the fused OLS path's
-sparse epilogue.
+sparse epilogue, and the canonical refine on the card
+(``refine_neglog10p_device``: ``core.stats.neglog10_p_from_t`` over a t
+buffer, which the reference runs on the host; it replaces no Pallas kernel).
 
 Each wrapper checks and allocates, then launches the CUDA kernel for tensors
 on a CUDA device, or runs the plain PyTorch version (``tstat_plain``,
 ``screen_compact_plain``, ``compact_survivors_plain``) for tensors on the
 CPU.  There is no fallback: a CUDA tensor either launches the kernel or
-raises.  ``tstat_launches``, ``screen_launches`` and ``compact_launches``
-count kernel launches (never the plain versions' runs).
+raises.  ``tstat_launches``, ``screen_launches``, ``compact_launches`` and
+``refine_launches`` count kernel launches (never the plain versions' runs).
+The refine's plain version is ``core.stats.neglog10_p_from_t`` itself, and
+its host route is ``core.stats.refine_neglog10p``: its wrapper takes CUDA
+tensors only.
 
 The screen and its t mode compact inside the kernel (an ordered scatter
 behind a decoupled look-back), so neither reads a device value back to the
@@ -40,6 +45,8 @@ __all__ = [
     "compact_launches",
     "compact_survivors",
     "compact_survivors_plain",
+    "refine_launches",
+    "refine_neglog10p_device",
     "screen_compact",
     "screen_compact_plain",
     "screen_launches",
@@ -52,6 +59,7 @@ __all__ = [
 tstat_launches = 0
 screen_launches = 0
 compact_launches = 0
+refine_launches = 0
 
 # Survivor indices are int32, as in the reference.
 _INDEX_LIMIT = 2**31
@@ -75,7 +83,9 @@ def _library():
         lib.tstat_launch.argtypes = [vp, vp, ll, f32, f32, i32, vp]
         lib.compact_launch.argtypes = [vp, vp, vp, vp, vp, ll, ll, ctypes.c_uint,
                                        f32, f32, f32, i32, i32, vp]
-        for fn in (lib.tstat_launch, lib.compact_launch, lib.compact_tile_elems):
+        lib.refine_launch.argtypes = [vp, vp, ll, f32, f32, f32, f32, f32, f32, i32, vp]
+        for fn in (lib.tstat_launch, lib.compact_launch, lib.refine_launch,
+                   lib.compact_tile_elems):
             fn.restype = ctypes.c_int
         _tile = lib.compact_tile_elems()
         _lib = lib
@@ -278,3 +288,25 @@ def compact_survivors(
     if t.device.type == "cpu":
         return compact_survivors_plain(t, t2_screen, capacity)
     return _compact(t, True, t2_screen, capacity, 1.0, 0.0)[1:]
+
+
+def refine_neglog10p_device(t: torch.Tensor, scalars) -> torch.Tensor:
+    """``core.stats.neglog10_p_from_t`` of a CUDA t buffer in one launch on
+    its device's current stream: a 1-D float32 tensor of ``t.numel()``
+    values there.  ``scalars`` is ``core.stats._refine_scalars(dof)``, the
+    per-scan scalars both routes share.  Elementwise: a lane's bits depend
+    on its t alone, never on its position or the buffer's length."""
+    if t.device.type != "cuda":
+        raise ValueError(f"the refine kernel runs on CUDA tensors, not {t.device.type}; "
+                         "core.stats.refine_neglog10p refines host values on the host")
+    global refine_launches
+    t = t.to(torch.float32).contiguous().reshape(-1)
+    out = torch.empty_like(t)
+    if t.numel() == 0:
+        return out
+    err = _library().refine_launch(t.data_ptr(), out.data_ptr(), t.numel(), *scalars,
+                                   t.device.index, _stream(t.device))
+    if err != 0:
+        raise RuntimeError(f"refine kernel launch failed: cudaError_t {err}")
+    refine_launches += 1
+    return out

@@ -344,7 +344,9 @@ def test_scan_spans_match_the_scan_metrics(study, devices):
         assert extractors == {"slot-tail-0", "slot-tail-1"} or extractors <= {
             "slot-tail-0", "slot-tail-1"}
         assert steppers <= {"scan-device-0", "scan-device-1"}
-    assert m["spans"]["counters"] == {}          # nothing left the CPU
+    # nothing left the CPU, and every emitted value took the host refine
+    counters = m["spans"]["counters"]
+    assert set(counters) == {"refine_lanes_host"} and counters["refine_lanes_host"] > 0
 
 
 @pytest.mark.parametrize("multivariate", [False, True])
