@@ -593,6 +593,25 @@ def _live_cell(
     return cell
 
 
+def _put_or_drop(q: queue.Queue, item, stop: threading.Event, wait_span: str) -> None:
+    """Put ``item`` on the bounded ``q``; while it is full, wait inside span
+    ``wait_span``.  Never blocks forever: once ``stop`` is set the item is
+    dropped (teardown, nobody is listening)."""
+    try:
+        q.put_nowait(item)
+        return
+    except queue.Full:
+        pass
+    with spans.span(wait_span):
+        while True:
+            try:
+                q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                if stop.is_set():
+                    return
+
+
 class _SlotTail:
     """Per-slot downstream tail: one FIFO thread that runs payload
     materialization (the device-to-host pulls), checkpoint commit and result
@@ -622,19 +641,7 @@ class _SlotTail:
     def submit(self, task: Callable[[], None]) -> None:
         """Enqueue (bounded: blocks the compute thread when the tail is >4
         cells behind — host-RAM backpressure) unless teardown started."""
-        try:
-            self._q.put_nowait(task)
-            return
-        except queue.Full:
-            pass
-        with spans.span("tail_wait"):
-            while True:
-                try:
-                    self._q.put(task, timeout=0.1)
-                    return
-                except queue.Full:
-                    if self._stop.is_set():
-                        return
+        _put_or_drop(self._q, task, self._stop, "tail_wait")
 
     def _run(self) -> None:
         with on_stream(self._stream):
@@ -819,6 +826,11 @@ class MultiDeviceExecutor:
     from the scheduler's live ``busy_s``/``wait_s`` accounting (guided
     self-scheduling), so late slots never idle behind one straggler's large
     lease.  Retunes affect future refills only.
+
+    Spans (``runtime.spans``, off by default): ``claim`` around each
+    worker's ``sched.claim``, ``result_wait`` around a put onto the full
+    results queue (the single consumer holding the fleet back), beside the
+    pool's ``batch_wait`` and the tails' ``tail_wait``.
     """
 
     kind = "multi-device"
@@ -905,15 +917,8 @@ class MultiDeviceExecutor:
         depth = self.slot_prefetch
 
         def put(item) -> None:
-            # Never blocks forever: once the consumer is gone (stop set) the
-            # item is dropped — teardown, nobody is listening.
-            while True:
-                try:
-                    results.put(item, timeout=0.1)
-                    return
-                except queue.Full:
-                    if stop.is_set():
-                        return
+            # A full queue is the consumer holding the fleet back.
+            _put_or_drop(results, item, stop, "result_wait")
 
         def decode(batch):
             with spans.span("decode", batch=batch.index):
@@ -1018,7 +1023,8 @@ class MultiDeviceExecutor:
                         while len(ahead) < depth + 1:
                             if not ahead and tail is not None and self.backend != "threads":
                                 tail.flush()
-                            got = sched.claim(label, block=not ahead)
+                            with spans.span("claim"):
+                                got = sched.claim(label, block=not ahead)
                             if got is None:
                                 break
                             if depth > 0:
@@ -1141,7 +1147,10 @@ class MultiDeviceExecutor:
         remaining items spread over the fleet (never above the configured
         initial — large early leases amortize queue traffic, small late ones
         balance the tail), and halve once when the fleet's wait share says
-        slots are starving behind peers' leases."""
+        slots are starving behind peers' leases.  The share is the workers'
+        ``wait_s`` over ``busy_s + wait_s``: ~0 under look-ahead, where no
+        worker is ever without a claimed item (the ``claim`` and
+        ``result_wait`` spans time the fleet's waits there)."""
         stats = sched.stats()
         busy = sum(s.busy_s for s in stats.values())
         wait = sum(s.wait_s for s in stats.values())

@@ -87,7 +87,13 @@ class WorkerStats:
     stolen_by: int = 0
     reclaimed: int = 0     # expired foreign leases taken over (shared-fs only)
     busy_s: float = 0.0
-    wait_s: float = 0.0    # idle between completing everything and the next item
+    # Idle between completing everything and the next item.  Under the
+    # pipelined executor's look-ahead (``slot_prefetch`` >= 1) a worker
+    # always holds a claimed item, so this reads ~0 however long its device
+    # idles (0.0 on four H100s 79.6% idle): the executor's ``claim``,
+    # ``batch_wait``, ``tail_wait`` and ``result_wait`` spans
+    # (``runtime.spans``) time its waits instead.
+    wait_s: float = 0.0
 
 
 class _WorkerClock:

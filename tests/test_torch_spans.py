@@ -7,8 +7,11 @@ two-slot multi-device executor, every live cell has one ``step`` and one
 ``extract`` span whose totals are ``ScanMetrics``' ``step_s`` and
 ``extract_s``, the decodes run on worker threads and the extractions on the
 slot tails; the outputs are bitwise the same with recording on and off; and
-the spans share the profiler's clock.  ``gpu``-marked cases check the clock
-and the CUDA-event device times on a card.
+the spans share the profiler's clock.  On four slots every claim of a worker
+is a ``claim`` span, and a put onto the consumer's full results queue a
+``result_wait`` span; with recording off nothing is recorded.
+``gpu``-marked cases check the clock and the CUDA-event device times on a
+card.
 """
 from __future__ import annotations
 
@@ -359,6 +362,69 @@ def test_outputs_are_bitwise_the_same_with_spans_on(study, multivariate):
         assert sorted(a) == sorted(b)
         for key in a:
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def _toy_study(tmp_path, *, n_markers):
+    cohort = synth.make_cohort(n_samples=120, n_markers=n_markers, n_traits=4, n_causal=2,
+                               effect_size=0.6, seed=3)
+    files = synth.write_cohort_files(cohort, str(tmp_path / "toy"))
+    return Study.from_arrays(plink.PlinkBed(files["bed"]), cohort.phenotypes,
+                             cohort.covariates, device="cpu")
+
+
+def _four_slot_events(study, *, batch_markers, record=True, pause_after_first=0.0):
+    """A four-slot CPU scan's cells, its session and the records; the
+    consumer sleeps ``pause_after_first`` seconds after the first cell."""
+    plan = study.plan(device="cpu", grid=GridSpec(batch_markers=batch_markers, block_p=4),
+                      executor=ExecSpec(devices=4))
+    plan.prepare()
+    session = plan.run(resume=False)
+    if record:
+        spans.start()
+    try:
+        cells = []
+        for c in session.events():
+            if not cells:
+                time.sleep(pause_after_first)
+            cells.append((c.batch_index, c.block_index))
+    finally:
+        spans.stop()
+    return session, cells, spans.take()
+
+
+def test_four_slot_scan_records_its_claims(tmp_path):
+    study = _toy_study(tmp_path, n_markers=200)
+    session, cells, recs = _four_slot_events(study, batch_markers=20)
+    by = {}
+    for r in recs:
+        by.setdefault(r["name"], []).append(r)
+    claimed = sum(w["claimed"] for w in session.executor_info["workers"].values())
+    # every claim that found an item, and each slot's last, empty one
+    assert len(by["claim"]) >= claimed + 4 and claimed > 0
+    assert {r["thread_name"] for r in by["claim"]} <= {f"scan-device-{i}" for i in range(4)}
+    assert {r["parent"] for r in by["claim"]} == {None}
+    assert sorted(r["cell"] for r in by["extract"]) == sorted(cells) and len(cells) == 10
+    # ten cells and four slots' ends never fill the results queue (4 x 4)
+    assert "result_wait" not in by
+    assert session.metrics.summary()["spans"]["by_name"]["claim"]["n"] == len(by["claim"])
+
+
+def test_a_slow_consumer_is_a_result_wait(tmp_path):
+    study = _toy_study(tmp_path, n_markers=480)
+    # 60 cells: the fleet fills the 16-deep queue while the consumer sleeps
+    _, cells, recs = _four_slot_events(study, batch_markers=8, pause_after_first=2.0)
+    waits = [r for r in recs if r["name"] == "result_wait"]
+    assert len(cells) == 60 and waits
+    assert {r["thread_name"].rsplit("-", 1)[0] for r in waits} == {"slot-tail"}
+    assert max(r["t1_ns"] - r["t0_ns"] for r in waits) >= 0.2e9
+
+
+def test_four_slot_scan_records_nothing_with_spans_off(tmp_path):
+    study = _toy_study(tmp_path, n_markers=200)
+    before = spans.snapshot()
+    session, cells, recs = _four_slot_events(study, batch_markers=20, record=False)
+    assert len(cells) == 10 and recs == [] and spans.snapshot() == before
+    assert "spans" not in session.metrics.summary()
 
 
 def test_cli_trace_spans_writes_the_spans_block(tmp_path):
