@@ -12,8 +12,11 @@ Phases, each printing one JSON line:
                   of HGMMA, UTMALDG and HMMA of every gwas_dot instantiation
                   (each main kernel: HGMMA and UTMALDG, no HMMA)
   kernel          gwas_dot kernel vs its plain version on the card, at one
-                  scan cell (M=4096, N=23000, P=1024) and a ragged shape, fp32
-                  and bf16; kernel/plain/library times (CUDA events), bound;
+                  fused scan cell (M=4096, N=23000, P=1024), a ragged shape
+                  and the dense engine's calls at the benchmark's batch
+                  (M=8192, N=23000, P=4096: one KERNEL_TRAIT_CHUNK of the
+                  20,480-trait OLS cell; P=2048: the multivariate cell),
+                  fp32 and bf16; kernel/plain/library times (CUDA events), bound;
                   at the cell, column and row splits of the call bitwise
                   equal to the whole call; the loop's edge shapes (unaligned
                   y rows, per-code decode, partial steps and chunks, tiles
@@ -41,15 +44,21 @@ Phases, each printing one JSON line:
                   width (N=23,000 samples, P=2,048 traits, 12 covariates),
                   depth cut to 8,192 markers (2 batches x 2 trait blocks);
                   one gwas_dot and one t-mode compaction launch per cell
-  cross           the same cohort on the dense engine (a torch.matmul GEMM):
-                  same hits outside a +/-0.05 band, values within the fused
-                  oracle tolerances, lambda_gc within 1e-3
+  cross           the same cohort on the dense engine twice: under dense
+                  staging (the library's fp32 GEMM at full N, no gwas_dot)
+                  and under packed staging (on-card statistics, gwas_dot over
+                  the packed codes): the fused scan and the packed dense scan
+                  each against the library scan, same hits outside a +/-0.05
+                  band, values within the fused oracle tolerances, lambda_gc
+                  within 1e-3
   multivariate    ``gwas scan --multivariate``: the same cohort unblocked on
                   the dense engine; hits.tsv and per_trait_best.tsv byte-equal
                   to cross's; S against a float64 oracle on the card's own r,
                   omnibus_nlp against scipy's float64 gammaincc, n_traits_eff
-                  against float64 Li & Ji; the whitening's time; no kernel
-                  launched; the reference's omnibus medians on its test cohort
+                  against float64 Li & Ji; the whitening's time; gwas_dot
+                  launched once a cell (the dense engine's product on packed
+                  codes) and the refine; the reference's omnibus medians on
+                  its test cohort
   identities      1,024 markers at full N and P: sparse == dense epilogue,
                   blocked == unblocked trait grid, packed == dense staging
   lmm_scan        the mixed-model path: ``gwas scan --engine lmm
@@ -326,7 +335,13 @@ BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
 HIT_BAND = 0.05
 DEVICE = "cuda:0"
-KERNEL_SHAPES = (("cell", (4096, 23000, 1024)), ("ragged", (1000, 1003, 300)))
+# "cell": a fused scan's cell (1,024-trait blocks); "dense_ols" and
+# "dense_mv": the dense engine's calls on the card at the benchmark's 8,192-
+# marker batch, one KERNEL_TRAIT_CHUNK of the 20,480-trait OLS panel and the
+# whole 2,048-trait multivariate panel
+KERNEL_SHAPES = (("cell", (4096, 23000, 1024)), ("ragged", (1000, 1003, 300)),
+                 ("dense_ols", (8192, 23000, 4096)), ("dense_mv", (8192, 23000, 2048)))
+DENSE_KERNEL_SHAPES = ("dense_ols", "dense_mv")
 # The gwas_dot loop's edges: (label, M, N, P, block_n).  P=301: rows of y not
 # 16-byte aligned (4-byte copies, scalar stores); block_n 64 and 36: the
 # per-code decode (block_n/4 is not a multiple of the 32-sample step), and
@@ -586,6 +601,15 @@ def launched_besides_refine(launches: dict) -> dict:
     return {k: v for k, v in launches.items() if k != "refine" and v}
 
 
+def dense_gwas_dot_calls(cells: int, width: int) -> int:
+    """gwas_dot launches of a dense scan on the card (packed staging, the
+    paper's dof): one a cell for each chunk of ``KERNEL_TRAIT_CHUNK`` traits
+    of its ``width``-trait block."""
+    from repro_torch.core.engines import KERNEL_TRAIT_CHUNK
+
+    return cells * -(-width // KERNEL_TRAIT_CHUNK)
+
+
 def gwas_dot_bound(m: int, n: int, p: int, packed_bytes: int, dtype: str) -> tuple[float, str]:
     """Least time for one gwas_dot call: each input read once (packed codes,
     mean, inv_std, y), each output written once (r, t), against the product's
@@ -821,14 +845,17 @@ def _split_bitwise(packed, mean, inv_std, y, n, block_n, dtype, whole) -> None:
           f"gwas_dot {dtype}: the first {SPLIT_M} rows differ from the whole call")
 
 
-def phase_kernel() -> dict:
+def phase_kernel() -> tuple[dict, dict]:
     import torch
 
+    from repro_torch.core.engines import KERNEL_TRAIT_CHUNK
     from repro_torch.kernels.gwas_dot import gwas_dot as gd
     from repro_torch.kernels.gwas_dot import ref
 
+    check(dict(KERNEL_SHAPES)["dense_ols"][2] == KERNEL_TRAIT_CHUNK,
+          f"the dense_ols shape is not one {KERNEL_TRAIT_CHUNK}-trait call")
     block_n = 512
-    main = None
+    main, dense_rows = None, {}
     for label, (m, n, p) in KERNEL_SHAPES:
         packed, mean, inv_std, y = _kernel_inputs(m, n, p, block_n, seed=m + n + p)
         dof = n - 2
@@ -864,6 +891,7 @@ def phase_kernel() -> dict:
             }
             if label == "cell":
                 row["split_bitwise"] = {f"p{SPLIT_P}": True, f"m{SPLIT_M}": True}
+            if label in ("cell", *DENSE_KERNEL_SHAPES):
                 # the call's two kernels on the card's timeline: the
                 # prologue (trait operand) and the main kernel
                 prof = _device_profile(kernel, 3, top=4)
@@ -882,6 +910,8 @@ def phase_kernel() -> dict:
             emit({"phase": "kernel", **row})
             if label == "cell" and dtype == "fp32":
                 main = row
+            if label in DENSE_KERNEL_SHAPES:
+                dense_rows[f"{label}/{dtype}"] = row
         del packed, mean, inv_std, y, y_pad, g
         torch.cuda.empty_cache()
     for label, m, n, p, block_n in KERNEL_EDGES:
@@ -893,7 +923,7 @@ def phase_kernel() -> dict:
             _hold_trait_operand(label, *inputs, block_n, dtype)
             emit({"phase": "kernel", "shape": label, "m": m, "n": n, "p": p,
                   "block_n": block_n, "dtype": dtype, **errs, "build": _mode_build(dtype)})
-    return main
+    return main, dense_rows
 
 
 class Collect:
@@ -1087,15 +1117,32 @@ def phase_scan(tmp: str):
     return study, cohort, col, timing
 
 
-def phase_cross(tmp: str, study, fused: Collect) -> Collect:
-    from repro_torch.api import GridSpec
+def phase_cross(tmp: str, study, fused: Collect) -> tuple[Collect, dict]:
+    """The library GEMM at full N (the dense engine under dense staging) as
+    the cross-check of both gwas_dot routes: the fused scan and the dense
+    engine under packed staging (its product in gwas_dot).  Returns the
+    packed dense scan, which the later phases hold their runs against, and
+    its timing."""
+    from repro_torch.api import GridSpec, IOSpec
 
     grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
+    library, _, lib_timing = _run(study, None, engine="dense", grid=grid,
+                                  io=IOSpec(genotype_staging="dense"))
+    check(lib_timing["launches"]["gwas_dot"] == 0,
+          f"cross: dense staging launched gwas_dot {lib_timing['launches']['gwas_dot']} times; "
+          "its product is the library's")
     dense, _, timing = _run(study, os.path.join(tmp, "dense"), engine="dense", grid=grid)
-    cmp = _compare(fused, dense, threshold=7.301)
-    emit({"phase": "cross", "engines": ["fused", "dense"], **cmp,
-          "dense_wall_s": timing["wall_s"], "dense_step_s": timing["step_s"]})
-    return dense
+    cells = timing["grid"][0] * timing["grid"][1]
+    calls = dense_gwas_dot_calls(cells, SCAN["trait_block"])
+    check(timing["launches"]["gwas_dot"] == calls, f"cross: packed staging launched gwas_dot "
+          f"{timing['launches']['gwas_dot']} times, not {calls}")
+    for label, run in (("fused", fused), ("dense_packed", dense)):
+        cmp = _compare(run, library, threshold=7.301)
+        emit({"phase": "cross", "engines": [label, "dense_library"], **cmp})
+    emit({"phase": "cross", "dense_library_wall_s": lib_timing["wall_s"],
+          "dense_library_step_s": lib_timing["step_s"], "dense_packed_wall_s": timing["wall_s"],
+          "dense_packed_step_s": timing["step_s"], "dense_packed_gwas_dot": calls})
+    return dense, timing
 
 
 class MvCollect(Collect):
@@ -1131,7 +1178,9 @@ def phase_multivariate(tmp: str, study, cohort) -> Collect:
     byte-equal to phase ``cross``'s dense run; S holds against a float64
     oracle on the card's own r (W from a float64 eigh of the same panel),
     ``omnibus_nlp`` against scipy's float64 ``gammaincc``, and
-    ``n_traits_eff`` against float64 Li & Ji.  No kernel of this repo runs.
+    ``n_traits_eff`` against float64 Li & Ji.  The product runs in
+    ``gwas_dot`` once a cell (packed staging on a card), the p-values in the
+    refine kernel; no other kernel of this repo runs.
     The reference's own omnibus check (planted median > 5, null < 1) runs on
     its test cohort; at the scan cohort, where each planted marker moves one
     trait of 2,048, the null median is checked and the planted one is
@@ -1150,8 +1199,10 @@ def phase_multivariate(tmp: str, study, cohort) -> Collect:
     out = os.path.join(tmp, "multivariate")
     col, _, timing = _run(study, out, collect=MvCollect(), engine="dense", grid=grid,
                           multivariate=True)
-    check(not launched_besides_refine(timing["launches"]),
-          f"multivariate: kernels launched {timing['launches']}; the path runs only the refine")
+    mv_calls = dense_gwas_dot_calls(timing["grid"][0] * timing["grid"][1], SCAN["n_traits"])
+    check(launched_besides_refine(timing["launches"]) == {"gwas_dot": mv_calls},
+          f"multivariate: kernels launched {timing['launches']}; the path runs gwas_dot "
+          f"{mv_calls} times and the refine")
     check_refined_on_card("multivariate", timing["launches"],
                           timing["grid"][0] * timing["grid"][1])
     for name in ("hits.tsv", "per_trait_best.tsv"):
@@ -1229,8 +1280,10 @@ def phase_multivariate(tmp: str, study, cohort) -> Collect:
                                     device=DEVICE)
     small_col, _, small_timing = _run(small_study, None, engine="dense",
                                       grid=GridSpec(batch_markers=256), multivariate=True)
-    check(not launched_besides_refine(small_timing["launches"]),
-          "multivariate/small: a kernel other than the refine ran")
+    small_calls = dense_gwas_dot_calls(small_timing["grid"][0] * small_timing["grid"][1],
+                                       MV_SMALL["n_traits"])
+    check(launched_besides_refine(small_timing["launches"]) == {"gwas_dot": small_calls},
+          f"multivariate/small: kernels launched {small_timing['launches']}")
     small_med = _omnibus_medians(small_col.canonical()["omnibus_nlp"], small.effects,
                                  MV_SMALL["n_markers"])
     check(small_med["planted_median_nlp"] > 5.0 and small_med["null_median_nlp"] < 1.0,
@@ -1371,8 +1424,8 @@ def phase_executor(tmp: str, study, fused: Collect, dense: Collect,
     engine once and the dense multivariate screen once (unblocked), each
     canonical-bitwise equal to its serial run on the default stream (the
     omnibus track included), with its kernels launched once per cell from the
-    slot's stream (the multivariate path launches only the refine kernel,
-    which every path launches at least once a cell)."""
+    slot's stream (the multivariate path launches gwas_dot and no compaction;
+    every path launches the refine kernel at least once a cell)."""
     from repro_torch.api import ExecSpec, GridSpec
 
     grid = GridSpec(batch_markers=SCAN["batch_markers"], trait_block=SCAN["trait_block"])
@@ -1401,14 +1454,20 @@ def phase_executor(tmp: str, study, fused: Collect, dense: Collect,
         check(timing["live_cells"] == cells, f"executor/{name}: {timing['live_cells']} live "
               f"cells of {cells}")
         mv = plan_kw.get("multivariate", False)
-        kernels = (() if mv else ("gwas_dot", "compact_survivors") if engine == "fused"
-                   else ("compact_survivors",))
-        for k in kernels:
-            check(timing["launches"][k] == cells, f"executor/{name}: {k} launched "
-                  f"{timing['launches'][k]} times, not once per cell ({cells})")
+        # both engines multiply packed codes in gwas_dot on the card; the
+        # dense one in calls of KERNEL_TRAIT_CHUNK traits
+        calls = (dense_gwas_dot_calls(cells, SCAN["n_traits"]) if mv
+                 else dense_gwas_dot_calls(cells, SCAN["trait_block"]) if engine == "dense"
+                 else cells)
+        check(timing["launches"]["gwas_dot"] == calls, f"executor/{name}: gwas_dot launched "
+              f"{timing['launches']['gwas_dot']} times, not {calls}")
+        if not mv:
+            check(timing["launches"]["compact_survivors"] == cells,
+                  f"executor/{name}: compact_survivors launched "
+                  f"{timing['launches']['compact_survivors']} times, not once per cell ({cells})")
         check_refined_on_card(f"executor/{name}", timing["launches"], cells)
         if mv:
-            check(not launched_besides_refine(timing["launches"]),
+            check(launched_besides_refine(timing["launches"]) == {"gwas_dot": calls},
                   f"executor/{name}: kernels launched {timing['launches']}")
         base = "dense_multivariate" if mv else engine
         canon = col.canonical()
@@ -1475,9 +1534,8 @@ def phase_devices(tmp: str) -> dict:
                                       executor=ExecSpec(devices=n))
             label = f"devices/{engine}/{run}"
             cells = timing["grid"][0] * timing["grid"][1]
-            kernels = (("gwas_dot", "compact_survivors") if engine == "fused"
-                       else ("compact_survivors",))
-            for k in kernels:
+            # both engines launch gwas_dot once a cell (1,024-trait blocks)
+            for k in ("gwas_dot", "compact_survivors"):
                 check(timing["launches"][k] == cells, f"{label}: {k} launched "
                       f"{timing['launches'][k]} times, not once per cell ({cells})")
             check_refined_on_card(label, timing["launches"], cells)
@@ -4783,13 +4841,13 @@ def main(argv: list[str]) -> int:
         emit({"phase": "done", "only": names, "total_s": time.perf_counter() - t_start})
         return 0
     phase_build()
-    main_row = phase_kernel()
+    main_row, dense_kernel_rows = phase_kernel()
     tstat_rows = phase_kernel_tstat()
     refine_row = phase_kernel_refine()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         study, cohort, fused, timing = phase_scan(tmp)
-        dense = phase_cross(tmp, study, fused)
+        dense, dense_timing = phase_cross(tmp, study, fused)
         multivariate = phase_multivariate(tmp, study, cohort)
         phase_identities(tmp, cohort)
         phase_executor(tmp, study, fused, dense, multivariate)
@@ -4819,12 +4877,20 @@ def main(argv: list[str]) -> int:
         "source": "src/repro_torch/kernels/csrc/gwas_dot.cu",
         "replaces": "src/repro/kernels/gwas_dot/gwas_dot.py:35",
         "launches": timing["launches"]["gwas_dot"],
+        # the dense engine's calls on the card: one a cell a chunk of
+        # KERNEL_TRAIT_CHUNK traits, over the same cohort
+        "launches_dense": dense_timing["launches"]["gwas_dot"],
         "max_abs_err": main_row["r_max_abs_err"],
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "dense_calls": {k: {"m": row["m"], "n": row["n"], "p": row["p"],
+                            "max_abs_err": row["r_max_abs_err"], "ms": row["kernel_ms"],
+                            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                            "library_ms": row["library_ms"]}
+                        for k, row in dense_kernel_rows.items()},
     }]
     # tstat runs on the fused epilogue's dense-audit path, the screen on the
     # mixed-model scan's default (sparse) path, its t mode on the fused OLS

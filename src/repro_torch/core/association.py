@@ -8,8 +8,15 @@ The hot path is one GEMM per genotype batch:
 
 Precision ladder:
     "fp32"  — float32 inputs, full-fp32 products (TF32 off; see
-              ``runtime.device.resolve_device``)
+              ``runtime.device.resolve_device``).  On the dense engine's
+              kernel route (a card, packed staging, the paper's dof:
+              ``engines.dense_product_route``) the product is ``gwas_dot``'s
+              3xTF32 (three TF32 passes, hi and lo parts, with the
+              accumulators restarted every 32 samples), held to r 2e-6 of
+              the exact sum; never one TF32 pass
     "bf16"  — inputs rounded to bfloat16, products accumulated in float32
+              (on the kernel route one bf16 pass, restarted every 256
+              samples)
 """
 from __future__ import annotations
 
@@ -43,7 +50,9 @@ class AssocOptions:
     dof_mode: "paper" uses N-2 (Eq. 3 as published); "exact" uses N-2-q and
         implies genotype residualization (Frisch-Waugh-Lovell) so the result
         equals full covariate-adjusted OLS.
-    precision: "fp32" | "bf16" (see module docstring).
+    precision: "fp32" | "bf16" (see module docstring: on the dense
+        engine's kernel route fp32 is 3xTF32 held to r 2e-6, never one
+        TF32 pass).
     eps: clamp for 1 - r^2.
     compute_neglog10p: skip the p-value epilogue when only |T| ranking is
         needed.

@@ -10,9 +10,11 @@ An engine owns both halves of one batch's journey:
                  summary tiles
 
 Engines register by name (``@register_engine``); the executor never branches
-on engine identity.  This port carries the two OLS engines, ``dense`` (a
-PyTorch GEMM over float dosages) and ``fused`` (the hand-written CUDA
-``gwas_dot`` kernel over 2-bit packed genotypes), and the mixed-model engine
+on engine identity.  This port carries the two OLS engines, ``dense``
+(standardized dosages and a PyTorch GEMM; on a card under packed staging its
+product runs in the hand-written ``gwas_dot`` over the staged codes, see
+``dense_product_route``) and ``fused`` (the hand-written CUDA ``gwas_dot``
+kernel over 2-bit packed genotypes), and the mixed-model engine
 ``lmm`` (streamed GRM, rotation, then the correlation epilogue; its fused
 epilogue runs the hand-written CUDA t-statistic and screen kernels of
 ``kernels/tstat.py``).
@@ -33,7 +35,7 @@ import functools
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -76,6 +78,7 @@ __all__ = [
     "build_dense_step",
     "build_fused_step",
     "build_lmm_step",
+    "dense_product_route",
     "host_batch_from_reference",
     "resolve_genotype_staging",
 ]
@@ -213,8 +216,10 @@ class EngineContext:
     sparse_epilogue: bool = False
     hit_capacity: int = 4096
     # H2D staging currency: "dense" stages decoded float32, "packed" stages
-    # raw PLINK 2-bit bytes and decodes on device (bitwise-identical
-    # results).  The session resolves "auto" via ``resolve_genotype_staging``.
+    # raw PLINK 2-bit bytes and decodes on device (bitwise-identical results
+    # on the CPU; on a card the dense engine multiplies packed codes in
+    # ``gwas_dot``, ``dense_product_route``).  The session resolves "auto"
+    # via ``resolve_genotype_staging``.
     genotype_staging: str = "dense"
 
 
@@ -230,11 +235,14 @@ def resolve_genotype_staging(
 ) -> str:
     """Negotiate the staging currency per source.
 
-    "auto" picks packed whenever it is exactly equivalent: the source speaks
-    native 2-bit bytes, no host-side sample subsetting applies, and no
-    sharding mesh (its shardings are declared over the decoded layout).
-    Explicit "packed" raises instead of silently falling back; "dense" is
-    always honored.
+    "auto" picks packed whenever the source speaks native 2-bit bytes, no
+    host-side sample subsetting applies, and no sharding mesh (its
+    shardings are declared over the decoded layout).  On the CPU packed
+    staging is then exactly equivalent to dense staging, bit for bit.  On a
+    card the dense engine's paper-dof product runs in ``gwas_dot`` over the
+    packed codes (``dense_product_route``), so there the two stagings agree
+    to the fp32 contract (r 2e-6), not bitwise.  Explicit "packed" raises
+    instead of silently falling back; "dense" is always honored.
     """
     if requested not in GENOTYPE_STAGINGS:
         raise ValueError(
@@ -496,6 +504,47 @@ def _gather_tiles(tiles: dict, mesh, spec, m: int, p: int) -> dict:
     return {k: gather_full(v, mesh, spec)[:m, :p] for k, v in tiles.items()}
 
 
+def dense_product_route(device: torch.device, *, packed_input: bool, dof_mode: str,
+                        mesh: Any = None) -> str:
+    """Where the dense step's product runs for a batch staged on ``device``.
+
+    "kernel": the hand-written ``gwas_dot`` multiplies the staged 2-bit
+    codes, standardized from the prolog's marker statistics, and computes r
+    and t in its epilogue.  That takes packed staging (there are codes), a
+    CUDA tensor (the kernel has no CPU mode), the paper's dof (exact dof
+    residualizes the genotypes, which codes cannot express) and no mesh.
+    "library": everything else multiplies the standardized float32
+    genotypes with a PyTorch GEMM (``association.correlation``)."""
+    if (packed_input and mesh is None and dof_mode == "paper"
+            and torch.device(device).type == "cuda"):
+        return "kernel"
+    return "library"
+
+
+# The widest panel one ``gwas_dot`` call of the dense kernel route takes.  The
+# kernel's grid walks 128-trait tiles fastest, so over a wide panel the
+# blocks in flight share one 128-marker row and each row reads the whole
+# trait operand from HBM (3.8 GB a row at 20,480 traits and 23,000 samples):
+# the product is then bound by bandwidth.  Over chunks of this many traits
+# the blocks in flight span several rows of the same trait tiles.  Each call
+# costs the host a dozen dispatches, which convoy on the interpreter lock
+# when several executor slots share one process.  On H100s at 8,192 x 23,000
+# x 20,480 the product took 83.9 ms in one call and 70.0, 65.8, 64.3 and 63.1
+# ms in chunks of 8,192, 4,096, 2,048 and 1,024; a scan over four cards
+# delivered 3.2-3.4e9, 4.2-4.9e9 and 4.5-5.5e9 tests/s in chunks of 1,024,
+# 2,048 and 4,096.
+KERNEL_TRAIT_CHUNK = 4096
+
+
+class _Codes(NamedTuple):
+    """The kernel route's genotype operand of one batch: the staged codes in
+    ``gwas_dot``'s tile layout and the statistics it standardizes them by."""
+
+    tiled: torch.Tensor
+    mean: torch.Tensor
+    inv_std: torch.Tensor
+
+
 def build_dense_step(
     *,
     n_samples: int,
@@ -512,26 +561,41 @@ def build_dense_step(
     sparse_epilogue: bool = False,
     hit_capacity: int = 4096,
     packed_input: bool = False,
+    block_n: int = 512,
     mesh: Any = None,
     mode: str = "mp",
 ) -> Callable[..., dict[str, torch.Tensor]]:
     """Paper-faithful dense step: float dosages in, summary tiles out.  The
-    GEMM is a PyTorch product (``core.association.correlation``); it serves
-    as the port's in-package cross-check of the fused kernel.
+    GEMM is a PyTorch product (``core.association.correlation``) on the
+    library route.  Under dense staging on a card only this route runs, and
+    it is the port's in-package cross-check of the ``gwas_dot`` kernel.
 
     ``packed_input`` accepts raw PLINK 2-bit bytes ``(M, ceil(N/4)) uint8``
-    and decodes them on device in front of the unchanged prolog, so every
-    emitted bit equals dense staging.  ``trait_tile`` fixes the panel-axis
-    GEMM tile (the scan passes its ``block_p``) so every trait-block
-    decomposition computes identical tiles.
+    and decodes them on device in front of the unchanged prolog.  On the CPU
+    every emitted bit then equals dense staging.  On a card, with the
+    paper's dof, the product takes the kernel route
+    (``dense_product_route``): the prolog keeps only the marker statistics
+    of ``standardize_genotype_batch`` (bitwise those of dense staging) and
+    repacks the staged bytes into ``gwas_dot``'s layout of ``block_n``-sample
+    tiles; each cell calls ``gwas_dot`` over the panel block, one call a
+    ``KERNEL_TRAIT_CHUNK`` traits, which standardizes the codes by those
+    statistics and returns r and t.  Its
+    fp32 product is 3xTF32 with the accumulators restarted every 32 samples,
+    held to r 2e-6 of the exact sum (bf16: one bf16 pass), so there packed
+    and dense staging agree to that contract, not bitwise.  ``trait_tile``
+    fixes the panel-axis GEMM tile (the scan passes its ``block_p``) so every
+    trait-block decomposition computes identical tiles; the kernel computes
+    each trait's column in one fixed order whatever the block.
 
     The step is a once-per-marker-batch *prolog* (standardize + the
     exact-mode FWL residualization) memoized on the staged tensor's identity,
     plus a per-cell *epilogue* (the panel GEMM + t/p).  ``split_prolog=False``
     runs the prolog on every call instead (no memo): the cell consumes the
-    same float32 ``g_std`` either way, so the outputs are bitwise equal.
-    ``sparse_epilogue`` switches the p-value epilogue to the threshold-
-    compacted form (``hit_idx``/``hit_r``/``hit_t`` + ``screen_count``).
+    same float32 ``g_std`` (or codes and statistics) either way, so the
+    outputs are bitwise equal.  ``sparse_epilogue`` switches the p-value
+    epilogue to the threshold-compacted form (``hit_idx``/``hit_r``/``hit_t``
+    + ``screen_count``).  Each cell adds 1 to the span counter
+    ``product_cells_kernel`` or ``product_cells_library``.
 
     ``multivariate`` adds the panel omnibus (``omnibus``, ``omnibus_nlp``:
     ``S = N * ||r W||^2`` against chi^2 with ``n_traits_eff`` degrees of
@@ -562,6 +626,7 @@ def build_dense_step(
             return _prolog(g_raw, q, sample_sum)
 
     def _prolog(g_raw, q, sample_sum):
+        staged = g_raw
         if packed_input:
             from repro_torch.kernels.gwas_dot import ops as kops
 
@@ -575,13 +640,59 @@ def build_dense_step(
             g_std = residualize_genotypes(g_std, q, sample_sum=sample_sum,
                                           n_samples=n_samples)
         valid = ms.valid & (ms.maf >= maf_min) if maf_min > 0 else ms.valid
+        route = dense_product_route(staged.device, packed_input=packed_input,
+                                    dof_mode=options.dof_mode, mesh=mesh)
+        if route == "kernel":
+            # The kernel standardizes the codes itself, as (d - mean) * inv_std
+            # with missing codes 0: the value g_std holds.  Rows stay unpadded.
+            tiled = kops.repack_plink_tiled_device(staged, n_samples=n_samples,
+                                                   block_n=block_n, block_m=1)
+            g_std = _Codes(tiled, ms.mean, ms.inv_std)
         return g_std, ms.maf, valid
 
     def product(g_std, y_std, sample_sum=None) -> torch.Tensor:
+        _spans.count("product_cells_library", 1)
         # looked up in its module at each call, as assoc_from_standardized
         # does, so a substitute installed there (a test's fault) is the one run
         return _assoc.correlation(g_std, y_std, n_samples, precision=cell_options.precision,
                                   trait_tile=trait_tile, sample_sum=sample_sum)
+
+    def kernel_product(codes: _Codes, y_std) -> tuple[torch.Tensor, torch.Tensor]:
+        from repro_torch.kernels.gwas_dot import gwas_dot as gd
+
+        _spans.count("product_cells_kernel", 1)
+
+        def call(y):
+            # looked up in its module at each call, as ``product`` does
+            return gd.gwas_dot_fused(
+                codes.tiled, codes.mean, codes.inv_std, y, n_samples=n_samples, dof=dof,
+                block_n=block_n, block_p=trait_tile or 256, input_dtype=options.precision,
+                eps=options.eps,
+            )
+
+        p, chunk = int(y_std.shape[1]), KERNEL_TRAIT_CHUNK
+        if p <= chunk:
+            return call(y_std)
+        # each trait's column is one fixed sum whatever the call's width, so
+        # the chunks' columns are the one wide call's, bit for bit
+        r = y_std.new_empty((codes.tiled.shape[0], p))
+        t = torch.empty_like(r)
+        for lo in range(0, p, chunk):
+            r_c, t_c = call(y_std[:, lo:lo + chunk])
+            r[:, lo:lo + chunk].copy_(r_c)
+            t[:, lo:lo + chunk].copy_(t_c)
+        return r, t
+
+    def kernel_tiles(r, t, valid) -> dict[str, torch.Tensor]:
+        # the kernel's fresh tiles are masked in place: the scan's widest
+        # panel holds two of them (1.25 GiB at 8,192 x 20,480) and no copies
+        invalid = ~valid[:, None]
+        out = {"r": r.masked_fill_(invalid, 0.0), "t": t.masked_fill_(invalid, 0.0)}
+        if sparse is None:
+            nlp = (_stats.neglog10_p_from_t(t, dof) if options.compute_neglog10p
+                   else torch.zeros_like(t))
+            out["nlp"] = nlp.masked_fill_(invalid, 0.0)
+        return out
 
     def tiles(g_std, valid, y_std, sample_sum=None) -> dict[str, torch.Tensor]:
         return tiles_from_r(product(g_std, y_std, sample_sum), valid)
@@ -609,6 +720,11 @@ def build_dense_step(
         return out
 
     def cell(g_std, maf, valid, y_std) -> dict[str, torch.Tensor]:
+        if isinstance(g_std, _Codes):
+            with _spans.span("product", device_of=valid):
+                r, t = kernel_product(g_std, y_std)
+            with _spans.span("epilogue", device_of=valid):
+                return summarize({**kernel_tiles(r, t, valid), "maf": maf, "valid": valid})
         with _spans.span("product", device_of=g_std):
             r = product(g_std, y_std)
         with _spans.span("epilogue", device_of=g_std):
@@ -957,9 +1073,13 @@ def build_lmm_step(
 
 @register_engine("dense")
 class DenseEngine(ScanEngine):
-    """PyTorch GEMM over float dosages — the paper-faithful engine, the
-    port's cross-check of the fused kernel, and the engine of the
-    multivariate screen."""
+    """Standardized dosages and a PyTorch GEMM — the paper-faithful engine
+    and the engine of the multivariate screen.  On a card under packed
+    staging with the paper's dof the product runs in the hand-written
+    ``gwas_dot`` over the staged codes (``dense_product_route``): there
+    packed and dense staging agree to the fp32 contract (r 2e-6); on the CPU
+    they agree bit for bit.  Under dense staging it keeps the library GEMM
+    and is the port's cross-check of the ``gwas_dot`` kernel."""
 
     def build_step(self, ctx: EngineContext) -> Callable[..., dict[str, torch.Tensor]]:
         return build_dense_step(
@@ -978,6 +1098,7 @@ class DenseEngine(ScanEngine):
             sparse_epilogue=ctx.sparse_epilogue,
             hit_capacity=ctx.hit_capacity,
             packed_input=ctx.genotype_staging == "packed",
+            block_n=ctx.block_n,
         )
 
     def prepare_batch(self, source: Any, batch: MarkerBatch, ctx: EngineContext) -> HostBatch:

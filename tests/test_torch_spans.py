@@ -347,9 +347,26 @@ def test_scan_spans_match_the_scan_metrics(study, devices):
         assert extractors == {"slot-tail-0", "slot-tail-1"} or extractors <= {
             "slot-tail-0", "slot-tail-1"}
         assert steppers <= {"scan-device-0", "scan-device-1"}
-    # nothing left the CPU, and every emitted value took the host refine
+    # nothing left the CPU: every emitted value took the host refine, and
+    # every cell's product the library GEMM
     counters = m["spans"]["counters"]
-    assert set(counters) == {"refine_lanes_host"} and counters["refine_lanes_host"] > 0
+    assert set(counters) == {"refine_lanes_host", "product_cells_library"}
+    assert counters["refine_lanes_host"] > 0
+    assert counters["product_cells_library"] == len(live)
+
+
+@pytest.mark.parametrize("multivariate", [False, True])
+def test_cpu_scan_counts_every_cell_on_the_library_route(study, multivariate):
+    """A CPU scan (packed staging, the paper's dof) multiplies every cell
+    with the library GEMM: ``product_cells_library`` counts its cells, one
+    ``product`` span each, and the kernel route never engages."""
+    session, cells, recs = _scan(study, multivariate=multivariate)
+    assert session.prepared.ctx.genotype_staging == "packed"
+    counters = session.metrics.summary()["spans"]["counters"]
+    assert counters["product_cells_library"] == len(cells) > 1
+    assert "product_cells_kernel" not in counters
+    product = [r for r in recs if r["name"] == "product"]
+    assert [r["counters"] for r in product] == [{"product_cells_library": 1}] * len(cells)
 
 
 @pytest.mark.parametrize("multivariate", [False, True])
@@ -496,3 +513,6 @@ def test_card_launches_and_device_times_fall_in_their_spans(study):
     for name in ("prolog", "product", "epilogue"):
         assert block["by_name"][name]["device_s"] > 0
     assert block["counters"]["d2h_bytes"] > 0
+    # packed staging on a card: every cell's product is a gwas_dot call
+    assert block["counters"]["product_cells_kernel"] == block["by_name"]["product"]["n"]
+    assert "product_cells_library" not in block["counters"]
